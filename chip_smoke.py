@@ -12,14 +12,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    hold each kernel against its plain PyTorch version at main-path
    shapes, and time kernel, plain version and (where one exists) the
    library call computing the same function.  Each kernel's bound is
-   worked out from this run's inputs; for banded Viterbi it includes
-   the serial frame chain, timed on the card by csrc/latency_probe.cu.
+   worked out from this run's inputs; for banded Viterbi and banded
+   forward-backward it includes the serial frame chain, whose step
+   latencies csrc/latency_probe.cu times on the card.
 4. Main path: WAV -> extract_features (fbank kernel) -> train_corpus at
    the audiomnist_10k widths (1,000 Gaussians, batch 256, 256-multiple
    padding), depth cut to 6 passes.  Launch counts are set to 0 just
    before and read just after.
 5. The fused-loglikes backend: 2 resident passes with
    likelihood_backend="pallas" against the same passes with "xla".
+6. Soft EM: from phase 4's model, 2 resident Baum-Welch passes
+   (fb_em_passes_resident) through the banded forward-backward
+   kernels, run twice (are the records bit-identical?  the rerun times
+   each launch of kernels D and E with CUDA events), then with the
+   dense FB (align_backend="xla"), then one accumulate_forward_backward
+   pass.  Launch counts are set to 0 just before the first run and read
+   just after.
 
 Prints a ``{"kernels": [...]}`` line, the card's nvidia-smi line, and as
 its last line ``{"ok": true, "device": {...}}``.  It needs one card and
@@ -29,6 +37,7 @@ repository's build/ directory, and starts no process that outlives it.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -89,7 +98,67 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def serial_bound(max_frames: int, DK: int, S: int, iters: int = 100_000):
+@contextlib.contextmanager
+def event_timed(module, names, calls):
+    """While inside, each call of ``module.<name>`` (a banded kernel
+    wrapper: tables, offsets, loglikes, num_frames, ...) is bracketed by
+    CUDA events: calls[name] collects (start, end, (B, DK, S, T,
+    num_frames)).  Nothing is synchronised; read the events after."""
+    import torch
+
+    saved = {n: getattr(module, n) for n in names}
+
+    def timed(name, fn):
+        def call(tables, offsets, loglikes, num_frames, *rest):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(tables, offsets, loglikes, num_frames, *rest)
+            end.record()
+            calls.setdefault(name, []).append(
+                (start, end, (*tables.plane_cost.shape, loglikes.shape[1], num_frames))
+            )
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(module, n, timed(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+_LATENCIES = {}
+
+
+def step_latencies(iters: int = 100_000):
+    """Dependent-step latencies on this card in ns, timed once by
+    csrc/latency_probe.cu: the frame exchange step, one fp32 operation,
+    a shared-memory read, a precise expf and a precise logf (+ add)."""
+    import torch
+
+    from khg_tpu_torch import kernels
+
+    if _LATENCIES:
+        return _LATENCIES
+    inp = torch.rand(512, device="cuda") * 1e-3
+    out = torch.zeros(6, dtype=torch.int64, device="cuda")
+    stream = kernels.stream_handle(inp.device)
+    for n in (1000, iters):  # the first call warms up
+        err = kernels.lib().launch_latency_probe(
+            inp.data_ptr(), out.data_ptr(), n, stream
+        )
+        if err != 0:
+            raise RuntimeError(f"latency probe failed to launch: error {err}")
+    torch.cuda.synchronize()
+    v = [x / iters for x in out.tolist()]
+    _LATENCIES.update(step=v[0], op=v[1] / 2, read=v[2], exp=v[4], log=v[5])
+    return _LATENCIES
+
+
+def serial_bound(max_frames: int, DK: int, S: int):
     """(ms, derivation): the least time of banded Viterbi's serial chain.
 
     Frame t+1 needs every alpha of frame t, so whatever the design, the
@@ -101,22 +170,8 @@ def serial_bound(max_frames: int, DK: int, S: int, iters: int = 100_000):
     the final argmin over S states (ceil(log2 S) exchange steps) and a
     backtrace of one dependent shared-memory read per frame.  The step
     times are measured on this card by csrc/latency_probe.cu."""
-    import torch
-
-    from khg_tpu_torch import kernels
-
-    inp = torch.rand(512, device="cuda") * 1e-3
-    out = torch.zeros(4, dtype=torch.int64, device="cuda")
-    stream = kernels.stream_handle(inp.device)
-    for n in (1000, iters):  # the first call warms up
-        err = kernels.lib().launch_latency_probe(
-            inp.data_ptr(), out.data_ptr(), n, stream
-        )
-        if err != 0:
-            raise RuntimeError(f"latency probe failed to launch: error {err}")
-    torch.cuda.synchronize()
-    step_ns, pair_ns, read_ns = (v / iters for v in out[:3].tolist())
-    op_ns = pair_ns / 2
+    lat = step_latencies()
+    step_ns, op_ns, read_ns = lat["step"], lat["op"], lat["read"]
     levels = math.ceil(math.log2(max(DK, 1)))
     frame_ns = step_ns + (levels + 1) * op_ns
     total_ns = (max_frames * (frame_ns + read_ns)
@@ -124,6 +179,31 @@ def serial_bound(max_frames: int, DK: int, S: int, iters: int = 100_000):
     chain = (f"{max_frames} frames x ({step_ns:.2f} ns step + {levels + 1} "
              f"x {op_ns:.2f} ns op + {read_ns:.2f} ns backtrace read) + "
              f"{math.ceil(math.log2(S))} x {step_ns:.2f} ns argmin")
+    return total_ns * 1e-6, chain
+
+
+def fb_serial_bound(max_frames: int, DK: int, S: int, log_z: bool):
+    """(ms, derivation): the least time of one banded forward-backward
+    pass's serial chain.  As for Viterbi, the longest utterance runs
+    ``max_frames`` dependent frames, whatever the design.  A frame is at
+    least one exchange step, a max tree over the DK candidates
+    (ceil(log2 DK) levels), one expf (the DK of them in parallel), a
+    sum tree of the same depth, one logf with the add of the maximum,
+    and the add of the acoustic term.  The forward pass ends with log Z:
+    a max and a sum over S states (2 ceil(log2 S) exchange steps), one
+    expf and one logf."""
+    lat = step_latencies()
+    levels = math.ceil(math.log2(max(DK, 1)))
+    frame_ns = (lat["step"] + 2 * levels * lat["op"] + lat["exp"]
+                + lat["log"] + lat["op"])
+    total_ns = max_frames * frame_ns
+    chain = (f"{max_frames} frames x ({lat['step']:.2f} ns step + "
+             f"{2 * levels + 1} x {lat['op']:.2f} ns op + {lat['exp']:.2f} ns "
+             f"expf + {lat['log']:.2f} ns logf)")
+    if log_z:
+        rlev = math.ceil(math.log2(S))
+        total_ns += 2 * rlev * lat["step"] + lat["exp"] + lat["log"]
+        chain += f" + {2 * rlev} x {lat['step']:.2f} ns log-Z steps + expf + logf"
     return total_ns * 1e-6, chain
 
 
@@ -179,12 +259,15 @@ def make_corpus(wav_dir: Path):
     return load_audiomnist_corpus(wav_dir)
 
 
-def check_banded(setup, results):
-    """Kernel A at B=256, T=512, S=256 on real packed graphs."""
+def banded_batch(setup, fb: bool):
+    """The kernel checks' batch: the 256 shortest utterances (all of at
+    most T=512 frames), packed as the main path packs them (S padded to
+    256; for forward-backward in the log semiring without parallel
+    arcs), with random loglikes of the main path's width.  Returns
+    (pipeline, tables, offsets, loglikes, num_frames, T, P)."""
     import numpy as np
     import torch
 
-    from khg_tpu_torch.align.banded_kernel import banded_cuda, banded_plain
     from khg_tpu_torch.features.fbank import num_frames
     from khg_tpu_torch.recipes.pipeline import EStepPipeline
 
@@ -193,25 +276,36 @@ def check_banded(setup, results):
     idx = [int(i) for i in np.argsort(nfr, kind="stable")[:256]]
     T = 512
     if nfr[idx].max() > T:
-        raise AssertionError("kernel A check: 256 utterances of <= 512 frames needed")
+        raise AssertionError("kernel checks: 256 utterances of <= 512 frames needed")
     pipe = EStepPipeline(
         copy.deepcopy(tm0), acoustic_scale=0.1, self_loop_scale=0.1,
         batch_size=256, states_pad_multiple=256, frames_pad_multiple=256,
-        align_backend="banded", device="cuda",
+        align_backend="banded", device=DEVICE,
     )
     base = pipe.pack_graphs_base(graphs)
-    _g, banded, _sp = pipe._batch_graphs(idx, base)
+    _g, banded, _sp = pipe._batch_graphs(idx, base, fb=fb)
     if banded is None:
-        raise AssertionError("kernel A check: batch did not pack banded")
+        raise AssertionError(f"kernel checks: batch did not pack banded (fb={fb})")
     tables, offsets = banded
-    B, DK, S = tables.plane_cost.shape
+    B = tables.plane_cost.shape[0]
     P = int(pipe.id2pdf.max()) + 1
     gen = np.random.default_rng(1)
     ll = torch.as_tensor(
         (-40.0 + 8.0 * gen.standard_normal((B, T, P))).astype(np.float32),
-        device="cuda",
+        device=DEVICE,
     )
-    nf = torch.as_tensor(nfr[idx].astype(np.int32), device="cuda")
+    nf = torch.as_tensor(nfr[idx].astype(np.int32), device=DEVICE)
+    return pipe, tables, offsets, ll, nf, T, P
+
+
+def check_banded(setup, results):
+    """Kernel A at B=256, T=512, S=256 on real packed graphs."""
+    import torch
+
+    from khg_tpu_torch.align.banded_kernel import banded_cuda, banded_plain
+
+    _pipe, tables, offsets, ll, nf, T, P = banded_batch(setup, fb=False)
+    B, DK, S = tables.plane_cost.shape
     tids_k, cost_k = banded_cuda(tables, offsets, ll, nf, 0.1)
     tids_p, cost_p = banded_plain(tables, offsets, ll, nf, 0.1)
     torch.cuda.synchronize()
@@ -246,6 +340,112 @@ def check_banded(setup, results):
     log(f"kernel A banded_viterbi: B={B} T={T} S={S} DK={DK}: bit-equal; "
         f"{ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms {b_by}: "
         f"serial {serial_ms:.4f}, throughput {tp_ms:.4f} {tp_by}; {chain})")
+
+
+def check_banded_fb(setup, results):
+    """Kernels D and E at B=256, T=512, S=256 on the utterances of the
+    kernel A check, packed for forward-backward (log semiring, no
+    parallel arcs)."""
+    import torch
+
+    from khg_tpu_torch.align.banded_fb import (
+        banded_fb_bwd_cuda,
+        banded_fb_bwd_plain,
+        banded_fb_fwd_cuda,
+        banded_fb_fwd_plain,
+    )
+    from khg_tpu_torch.align.forward_backward import (
+        NEG_BIG,
+        gamma_from_state_posteriors,
+        tid_counts_from_posteriors,
+    )
+
+    pipe, tables, offsets, ll, nf, T, P = banded_batch(setup, fb=True)
+    B, DK, S = tables.plane_cost.shape
+    num_tids = pipe.tm.num_transition_ids
+    args = (tables, offsets, ll, nf, 0.1)
+    alphas_k, lz_k = banded_fb_fwd_cuda(*args)
+    sp_k, ap_k = banded_fb_bwd_cuda(*args, alphas_k, lz_k)
+    alphas_p, lz_p = banded_fb_fwd_plain(*args)
+    sp_p, ap_p = banded_fb_bwd_plain(*args, alphas_p, lz_p)
+    torch.cuda.synchronize()
+    fail_k, fail_p = lz_k < NEG_BIG / 2, lz_p < NEG_BIG / 2
+    if not torch.equal(fail_k, fail_p):
+        raise AssertionError("kernel D: failures differ from the plain version")
+    lz_rel = float(((lz_k - lz_p).abs() / lz_p.abs()).max())
+    gam_k = gamma_from_state_posteriors(sp_k, tables.state_pdf, P)
+    gam_p = gamma_from_state_posteriors(sp_p, tables.state_pdf, P)
+    ok = ~fail_p
+    gam_err = float((gam_k - gam_p)[ok].abs().max())
+    cnt_err = float((tid_counts_from_posteriors(ap_k, tables.plane_tid, num_tids)
+                     - tid_counts_from_posteriors(ap_p, tables.plane_tid, num_tids)
+                     )[ok].abs().max())
+    if lz_rel > 1e-5 or gam_err > 1e-4 or cnt_err > 1e-3:
+        raise AssertionError(
+            f"kernels D/E: log Z rel err {lz_rel} (<= 1e-5), gamma err "
+            f"{gam_err} (<= 1e-4), tid-count err {cnt_err} (<= 1e-3)"
+        )
+    bit_equal = dict(log_z=bool(torch.equal(lz_k, lz_p)),
+                     spost=bool(torch.equal(sp_k, sp_p)),
+                     apost=bool(torch.equal(ap_k, ap_p)))
+    ms_f = time_ms(lambda: banded_fb_fwd_cuda(*args), reps=10)
+    ms_b = time_ms(lambda: banded_fb_bwd_cuda(*args, alphas_k, lz_k), reps=10)
+    plain_f = time_ms(lambda: banded_fb_fwd_plain(*args), reps=2)
+    plain_b = time_ms(lambda: banded_fb_bwd_plain(*args, alphas_p, lz_p), reps=2)
+    steps = int(nf.sum())
+    # the function's bytes: the tables, the acoustic rows of the active
+    # frames, log Z, and the active frames' state posteriors and the
+    # plane posteriors.  The design adds the alphas of the active frames
+    # (D writes them, E reads them back) and E's zero posteriors past
+    # each utterance's end (it writes all B*T*S): its bound beside.
+    tab = B * DK * S * 4 + B * S * 4 + B * 4 + DK * 4
+    nbytes_f = tab + 2 * B * S * 4 + steps * P * 4 + B * 4
+    nbytes_b = (tab + B * S * 4 + steps * P * 4 + B * 4 + steps * S * 4
+                + B * DK * S * 4)
+    design_f = nbytes_f + steps * S * 4
+    design_b = nbytes_b + steps * S * 4 + (B * T - steps) * S * 4
+    # operations per active (frame, state): forward 5 DK + 5 (add, max,
+    # subtract, expf, sum per plane; log, max add, scale, add, clamp);
+    # backward 11 DK + 7 (the posterior: 2 adds, min, expf, 2 sums per
+    # plane; beta as the forward; the acoustic term and log Z)
+    ops_f = steps * S * (5 * DK + 5) + B * S * 5
+    ops_b = steps * S * (11 * DK + 7)
+    mf = int(nf.max())
+    out = {}
+    for name, src_line, ms, plain_ms, nbytes, design, ops, log_z in (
+        ("banded_fb_fwd", 110, ms_f, plain_f, nbytes_f, design_f, ops_f, True),
+        ("banded_fb_bwd", 155, ms_b, plain_b, nbytes_b, design_b, ops_b, False),
+    ):
+        tp_ms, tp_by = bound(nbytes, ops, FP32_OPS_PER_S)
+        serial_ms, chain = fb_serial_bound(mf, DK, S, log_z)
+        b_ms, b_by = ((serial_ms, "operations") if serial_ms > tp_ms
+                      else (tp_ms, tp_by))
+        dtp_ms, dtp_by = bound(design, ops, FP32_OPS_PER_S)
+        d_ms, d_by = ((serial_ms, "operations") if serial_ms > dtp_ms
+                      else (dtp_ms, dtp_by))
+        out[name] = (f"{b_ms:.4f} ms: serial {serial_ms:.4f}, throughput "
+                     f"{tp_ms:.4f} {tp_by}; design {d_ms:.4f} {d_by}")
+        results[name] = dict(
+            name=name, route="cuda", source="khg_tpu_torch/csrc/banded_fb.cu",
+            replaces=f"khg_tpu/align/pallas_banded_fb.py:{src_line}",
+            max_abs_err=float((lz_k - lz_p).abs().max()) if log_z else gam_err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, throughput_bound_ms=tp_ms, serial_bound_ms=serial_ms,
+            design_bound_ms=d_ms, design_bound_by=d_by, serial_chain=chain,
+            shape=dict(B=B, T=T, S=S, DK=DK, P=P, frames=steps, max_frames=mf),
+            tolerance=("log Z rtol 1e-5, failures equal" if log_z else
+                       "gamma atol 1e-4, tid counts atol 1e-3"),
+        )
+    results["banded_fb_fwd"]["log_z_max_rel_err"] = lz_rel
+    results["banded_fb_bwd"]["tid_count_max_abs_err"] = cnt_err
+    results["banded_fb_bwd"]["bit_equal"] = bit_equal
+    log(f"kernels D/E banded_fb: B={B} T={T} S={S} DK={DK} P={P}, {steps} "
+        f"frames (longest {mf}), {int(fail_p.sum())} failed: log Z rel err "
+        f"{lz_rel:.2e}, gamma err {gam_err:.2e}, tid-count err {cnt_err:.2e}; "
+        f"bit-equal {bit_equal}")
+    log(f"  fwd {ms_f:.3f} ms (plain {plain_f:.1f} ms, bound {out['banded_fb_fwd']}); "
+        f"bwd {ms_b:.3f} ms (plain {plain_b:.1f} ms, bound {out['banded_fb_bwd']}); "
+        f"chain {results['banded_fb_fwd']['serial_chain']}")
 
 
 def check_loglikes(P, results):
@@ -476,6 +676,116 @@ def pallas_backend(res, graphs, feats):
     return launches
 
 
+# ------------------------------------------------------------------ phase 6
+
+def soft_em(res, graphs, feats):
+    """Resident Baum-Welch from phase 4's model: banded kernels twice,
+    the dense FB once, and one accumulate_forward_backward pass.
+
+    The transition and self-loop scales are equal (1.0), so the graph
+    weights are the transition probabilities raised to one power and
+    the M-step maximises the objective that log Z measures: log Z may
+    not fall from pass to pass."""
+    import numpy as np
+    import torch
+
+    from khg_tpu_torch import kernels
+    from khg_tpu_torch.align import banded_fb
+    from khg_tpu_torch.est.flags import GMM_ALL
+    from khg_tpu_torch.est.mle import MleDiagGmmOptions
+    from khg_tpu_torch.model.transition_model import MleTransitionUpdateConfig
+    from khg_tpu_torch.recipes.pipeline import EStepPipeline
+    from khg_tpu_torch.stats.accum import AccumAmDiagGmm
+
+    frames = sum(f.shape[0] for f in feats)
+
+    def pipeline(backend):
+        return EStepPipeline(
+            copy.deepcopy(res.transition_model), acoustic_scale=0.1,
+            transition_scale=1.0, self_loop_scale=1.0, batch_size=256,
+            mix_pad_multiple=8, states_pad_multiple=256,
+            frames_pad_multiple=256, align_backend=backend, device=DEVICE,
+        )
+
+    recs, walls = [], {}
+    launches = None
+    calls = {}
+    for run, backend in enumerate(("banded", "banded", "xla")):
+        pipe = pipeline(backend)
+        base = pipe.pack_graphs_base(graphs)
+        model = pipe.pack_model_device(res.am)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        # the rerun times each launch of kernels D and E
+        with (event_timed(banded_fb, ("banded_fb_fwd_cuda", "banded_fb_bwd_cuda"),
+                          calls) if run == 1 else contextlib.nullcontext()):
+            _m, rec = pipe.fb_em_passes_resident(
+                model, base, feats, 2, mle_config=MleDiagGmmOptions(),
+                transition_cfg=MleTransitionUpdateConfig(),
+            )
+        secs = time.perf_counter() - t0
+        if run == 0:
+            launches = dict(kernels.LAUNCHES)
+        walls[f"{backend}_{run}_s"] = secs
+        walls[f"{backend}_{run}_passes_s"] = pipe.counters.wall["fb"]
+        recs.append(rec)
+        log(f"soft EM {backend} (run {run}): 2 passes in {secs:.2f} s "
+            f"({pipe.counters.wall['fb']:.3f} s after packing); log Z "
+            f"per frame {(rec[:, 2] / frames).round(6).tolist()}; avg ll "
+            f"{(rec[:, 0] / rec[:, 1]).round(6).tolist()}; failures "
+            f"{rec[:, 4].tolist()}")
+    log(f"soft-EM launches: {launches}")
+    torch.cuda.synchronize()
+    kernel_ms = {}
+    for fn, pairs in calls.items():
+        times = [s.elapsed_time(e) for s, e, _shape in pairs]
+        kernel_ms[fn] = sum(times) / 2
+        shapes = [(*sh[:4], int(sh[4].max())) for _s, _e, sh in pairs]
+        log(f"phase 6 rerun, {fn} per launch (ms, (B, DK, S, T, longest "
+            f"utterance)): {list(zip(times, shapes))}")
+    fb_pass_s = walls["banded_1_passes_s"] / 2
+    log(f"phase 6 rerun, per pass: D {kernel_ms['banded_fb_fwd_cuda']:.3f} ms + "
+        f"E {kernel_ms['banded_fb_bwd_cuda']:.3f} ms of {fb_pass_s * 1e3:.1f} ms "
+        f"wall ({sum(kernel_ms.values()) / (fb_pass_s * 1e3):.1%})")
+    b0, b1, x = recs
+    if b0[:, 4].any() or x[:, 4].any():
+        raise AssertionError("soft EM: forward-backward failures")
+    if not b0[1, 2] >= b0[0, 2]:
+        raise AssertionError(f"soft EM: log Z fell from pass 1 to pass 2: {b0[:, 2]}")
+    for k in ("banded_fb_fwd", "banded_fb_bwd"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the soft-EM path")
+    log(f"banded soft EM run twice: records bit-identical: "
+        f"{bool((b0 == b1).all())}; max abs diff {float(np.abs(b0 - b1).max())}")
+    # tot_log_like, tot_frames and log Z within 1e-4 per frame
+    per_frame = np.abs(b0 - x) / frames
+    log(f"banded vs dense records, per frame: log Z {per_frame[:, 2].tolist()}, "
+        f"tot_log_like {per_frame[:, 0].tolist()}, tot_frames "
+        f"{per_frame[:, 1].tolist()}")
+    if per_frame[:, :3].max() > 1e-4:
+        raise AssertionError(f"soft EM: banded vs dense records differ by "
+                             f"{per_frame[:, :3].max(0)} per frame (> 1e-4)")
+    if (b0[:, 3:6] != x[:, 3:6]).any():
+        raise AssertionError("soft EM: banded vs dense utterance counts differ")
+
+    pipe = pipeline("banded")
+    accs = AccumAmDiagGmm()
+    accs.init(res.am, flags=GMM_ALL)
+    t0 = time.perf_counter()
+    log_z = pipe.accumulate_forward_backward(
+        res.am, pipe.refresh_transition_costs(pipe.pack_graphs_base(graphs)),
+        feats, accs, pipe.tm.init_stats(),
+    )
+    walls["accumulate_s"] = time.perf_counter() - t0
+    rel = abs(log_z - b0[0, 2]) / abs(b0[0, 2])
+    log(f"accumulate_forward_backward: log Z {log_z:.3f} vs pass 1 "
+        f"{b0[0, 2]:.3f} (rel {rel:.2e}) in {walls['accumulate_s']:.2f} s")
+    if rel > 1e-5:
+        raise AssertionError(f"accumulate_forward_backward log Z off by {rel}")
+    log(f"soft-EM wall times: {json.dumps({k: round(v, 3) for k, v in walls.items()})}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -532,7 +842,9 @@ def main() -> int:
         graphs = compile_training_graphs(lp, tm0, tree, corpus.word_seqs)
         log(f"graph compile: {len(graphs)} graphs in {time.perf_counter() - t0:.1f} s")
 
-        check_banded((lp, tm0, tree, graphs, list(map(len, waves)), cfg), results)
+        setup = (lp, tm0, tree, graphs, list(map(len, waves)), cfg)
+        check_banded(setup, results)
+        check_banded_fb(setup, results)
         check_loglikes(am0.num_pdfs, results)
         check_fbank(waves, cfg, results)
         if KERNELS_ONLY:
@@ -540,13 +852,17 @@ def main() -> int:
 
         res, feats, launches = main_path(corpus, lp, graphs, cfg)
         b_launches = pallas_backend(res, graphs, feats)
+        fb_launches = soft_em(res, graphs, feats)
 
     results["banded_viterbi"]["launches"] = launches["banded_viterbi"]
     results["fbank"]["launches"] = launches["fbank"]
     results["fused_loglikes"]["launches"] = b_launches["fused_loglikes"]
+    for k in ("banded_fb_fwd", "banded_fb_bwd"):
+        results[k]["launches"] = fb_launches[k]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [results[k] for k in
-                                ("banded_viterbi", "fused_loglikes", "fbank")]}))
+    log(json.dumps({"kernels": [results[k] for k in (
+        "banded_viterbi", "fused_loglikes", "fbank", "banded_fb_fwd",
+        "banded_fb_bwd")]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

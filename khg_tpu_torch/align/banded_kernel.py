@@ -110,6 +110,46 @@ def banded_plain(
     return tids, total_cost
 
 
+def check_banded_inputs(name, tables: BandedTables, offsets, loglikes,
+                        num_frames):
+    """Validate a banded kernel's inputs before their pointers reach the
+    kernel: one CUDA device, dtypes, shapes, contiguity, one offset per
+    plane.  Returns (B, DK, S, T, P, device)."""
+    pc = tables.plane_cost
+    B, DK, S = pc.shape
+    if loglikes.dim() != 3 or loglikes.shape[0] != B:
+        raise ValueError("loglikes must be (B, T, P)")
+    T, P = loglikes.shape[1], loglikes.shape[2]
+    dev = loglikes.device
+    check_tensors(name, dev, [
+        (pc, torch.float32, (B, DK, S)),
+        (tables.plane_tid, torch.int32, (B, DK, S)),
+        (tables.state_pdf, torch.int32, (B, S)),
+        (tables.init_cost, torch.float32, (B, S)),
+        (tables.final_cost, torch.float32, (B, S)),
+        (loglikes, torch.float32, (B, T, P)),
+        (num_frames, torch.int32, (B,)),
+    ])
+    if len(offsets) != DK:
+        raise ValueError("one offset per plane")
+    return B, DK, S, T, P, dev
+
+
+def check_tensors(name, dev, checks):
+    """Each (tensor, dtype, shape) of ``checks`` lies on the CUDA device
+    ``dev``, contiguous, with that dtype and shape."""
+    for t, dtype, shape in checks:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name} needs every tensor on one CUDA device")
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{name}: expected {dtype} {tuple(shape)}, got {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous tensors")
+
+
 @functools.lru_cache(maxsize=32)
 def _offsets_on(offsets: Tuple[int, ...], device: str) -> torch.Tensor:
     return torch.as_tensor(offsets, dtype=torch.int32, device=device)
@@ -125,33 +165,9 @@ def banded_cuda(
     """Launch ``csrc/banded_viterbi.cu``: (tids (B, T) int32, total_cost)."""
     from khg_tpu_torch import kernels
 
-    pc = tables.plane_cost
-    B, DK, S = pc.shape
-    if loglikes.dim() != 3 or loglikes.shape[0] != B:
-        raise ValueError("loglikes must be (B, T, P)")
-    T, P = loglikes.shape[1], loglikes.shape[2]
-    dev = loglikes.device
-    checks = [
-        (pc, torch.float32, (B, DK, S)),
-        (tables.plane_tid, torch.int32, (B, DK, S)),
-        (tables.state_pdf, torch.int32, (B, S)),
-        (tables.init_cost, torch.float32, (B, S)),
-        (tables.final_cost, torch.float32, (B, S)),
-        (loglikes, torch.float32, (B, T, P)),
-        (num_frames, torch.int32, (B,)),
-    ]
-    for t, dtype, shape in checks:
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError("banded_cuda needs every tensor on one CUDA device")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"banded_cuda: expected {dtype} {shape}, got {t.dtype} "
-                f"{tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError("banded_cuda needs contiguous tensors")
-    if len(offsets) != DK:
-        raise ValueError("one offset per plane")
+    B, DK, S, T, P, dev = check_banded_inputs(
+        "banded_cuda", tables, offsets, loglikes, num_frames
+    )
     if not kernel_fits(DK, S):
         raise ValueError(
             f"banded_cuda: DK={DK} planes over S={S} states need "
@@ -163,7 +179,7 @@ def banded_cuda(
     tids = torch.empty((B, T), dtype=torch.int32, device=dev)
     cost = torch.empty((B,), dtype=torch.float32, device=dev)
     err = kernels.lib().launch_banded_viterbi(
-        pc.data_ptr(), tables.plane_tid.data_ptr(),
+        tables.plane_cost.data_ptr(), tables.plane_tid.data_ptr(),
         tables.state_pdf.data_ptr(), tables.init_cost.data_ptr(),
         tables.final_cost.data_ptr(), loglikes.data_ptr(),
         num_frames.data_ptr(), offs.data_ptr(), bp.data_ptr(),

@@ -1,0 +1,310 @@
+// Banded (offset-plane) forward-backward for Hopper (sm_90a).
+//
+// Replaces khg_tpu/align/pallas_banded_fb.py::_fb_fwd_kernel and
+// ::_fb_bwd_kernel (called through forward_backward_banded).  After
+// SCC-topological renumbering every arc into state s comes from
+// s - off[d] for a small static set of plane offsets (normalised into
+// [0, S) here), and with the per-state acoustic term
+// sac[t][s] = scale * ll[b, t, pdf(s)] one frame of Baum-Welch is, in
+// the log domain with negated costs nc[d][s] = -plane_cost[d][s],
+//
+//   forward   alpha'[s] = max(lse_d(alpha[s - off[d]] + nc[d][s]) + sac[t][s], NEG_BIG)
+//   posterior post_d[s] = exp(min((alpha[s - off[d]] + nc[d][s])
+//                                 + ((beta'[s] + sac[t][s]) - logZ), 0))
+//   backward  beta[s]   = lse_d((beta' + sac[t])[s + off[d]] + nc[d][s + off[d]])
+//
+// where lse_d keeps khg_tpu's floor (a maximum at or below NEG_BIG/2
+// gives NEG_BIG; never below NEG_BIG).  The beta recursion reads the
+// out-plane cost straight from the in-plane at s + off[d], so the TPU
+// kernel's pre-rolled, plane-flipped copy of the costs is not built.
+//
+// What bounds it on the H100: frame t+1 needs every alpha (beta) of
+// frame t, so an utterance's time is a chain of nf dependent frames,
+// each an exchange through shared memory, a barrier, a max and a sum
+// over DK planes, an expf per plane and one logf.  The bytes are small
+// next to that chain (at the main-path shapes the whole alpha history,
+// 256 utts x 512 frames x 256 states x 4 B = 134 MB, is written once
+// and read once: ~0.08 ms at 3.35 TB/s).
+//
+// Design: one thread block per utterance, one thread per state.  The
+// negated plane costs and the offsets live in shared memory for the
+// whole utterance; alpha (forward), and alpha_t with beta' + sac
+// (backward), are double-buffered in shared memory, so each frame
+// needs one barrier.  The forward kernel writes every alpha to global
+// memory and the backward kernel reads it back, instead of the TPU
+// kernel's per-chunk checkpoints and recomputation: that would add a
+// second forward sweep to the backward kernel's serial chain to save
+// bytes that are not the limit here.  Each thread owns its state's
+// plane-posterior sums, kept in the output array in global memory,
+// which no other thread touches (no atomics).  Frames at or past nf
+// are not run: alpha and beta stay as they are and their posteriors
+// are written as 0.  log Z is reduced by one thread over the states in
+// order, as the plain version sums.
+//
+// Shared memory of a block, (DK * S + 2 * nbuf * S) floats + DK ints,
+// nbuf = 1 forward (alpha) and 2 backward (alpha_t, beta' + sac): see
+// smem_bytes below; align/banded_fb.py::fb_kernel_smem_bytes mirrors
+// the backward kernel's, the larger.
+//
+// Parity with the plain version (align/banded_fb.py): the adds use
+// __fadd_rn/__fsub_rn/__fmul_rn so nvcc cannot contract them into FMAs,
+// planes and states are summed one after another in index order, and
+// expf/logf are the precise ones (no fast math).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <math.h>
+
+#define KHG_NEG_BIG (-1.0e30f)
+#define KHG_HALF_NEG_BIG (-5.0e29f)
+
+namespace {
+
+// floored log-sum-exp from the maximum m and sum(exp(c - m_safe))
+__device__ __forceinline__ float lse_finish(float m, float sum, float m_safe) {
+    const float out = (m > KHG_HALF_NEG_BIG) ? __fadd_rn(logf(sum), m_safe)
+                                             : KHG_NEG_BIG;
+    return fmaxf(out, KHG_NEG_BIG);
+}
+
+__device__ __forceinline__ float safe_max(float m) {
+    return (m > KHG_HALF_NEG_BIG) ? m : 0.f;
+}
+
+__global__ void __launch_bounds__(1024) banded_fb_fwd_kernel(
+    const float* __restrict__ plane_cost,    // (B, DK, S)
+    const int32_t* __restrict__ state_pdf,   // (B, S)
+    const float* __restrict__ init_cost,     // (B, S)
+    const float* __restrict__ final_cost,    // (B, S)
+    const float* __restrict__ loglikes,      // (B, T, P)
+    const int32_t* __restrict__ num_frames,  // (B,)
+    const int32_t* __restrict__ offsets,     // (DK,)
+    float* __restrict__ alphas,              // (B, T, S) out: alpha before frame t
+    float* __restrict__ log_z,               // (B,) out
+    int DK, int S, int T, int P, float scale)
+{
+    extern __shared__ float smem[];
+    float* nc = smem;                                    // DK * S
+    float* abuf = nc + (size_t)DK * S;                   // 2 * S
+    int* offs = reinterpret_cast<int*>(abuf + 2 * S);    // DK
+
+    const int b = blockIdx.x;
+    const int s = threadIdx.x;
+    const int nt = blockDim.x;
+    const bool live = s < S;
+    int nf = num_frames[b];
+    if (nf > T) nf = T;
+    if (nf < 0) nf = 0;
+
+    const float* pc = plane_cost + (size_t)b * DK * S;
+    for (int i = s; i < DK * S; i += nt) nc[i] = -pc[i];
+    for (int i = s; i < DK; i += nt) {
+        const int o = offsets[i] % S;
+        offs[i] = o < 0 ? o + S : o;
+    }
+    float a = KHG_NEG_BIG;
+    int pdf = 0;
+    if (live) {
+        a = fmaxf(-init_cost[(size_t)b * S + s], KHG_NEG_BIG);
+        abuf[s] = a;
+        pdf = state_pdf[(size_t)b * S + s];
+    }
+    __syncthreads();
+
+    const float* llb = loglikes + (size_t)b * T * P;
+    float* ab = alphas + (size_t)b * T * S;
+    int cur = 0;
+    for (int t = 0; t < nf; ++t) {
+        const float* in = abuf + cur * S;
+        float* out = abuf + (cur ^ 1) * S;
+        if (live) {
+            ab[(size_t)t * S + s] = a;
+            float m = -INFINITY;
+            for (int d = 0; d < DK; ++d) {
+                int src = s - offs[d];
+                if (src < 0) src += S;
+                m = fmaxf(m, __fadd_rn(in[src], nc[d * S + s]));
+            }
+            const float ms = safe_max(m);
+            float sum = 0.f;
+            for (int d = 0; d < DK; ++d) {
+                int src = s - offs[d];
+                if (src < 0) src += S;
+                const float c = __fadd_rn(in[src], nc[d * S + s]);
+                sum = __fadd_rn(sum, expf(__fsub_rn(c, ms)));
+            }
+            const float sac = __fmul_rn(scale, llb[(size_t)t * P + pdf]);
+            a = fmaxf(__fadd_rn(lse_finish(m, sum, ms), sac), KHG_NEG_BIG);
+            out[s] = a;
+        }
+        __syncthreads();
+        cur ^= 1;
+    }
+
+    // log Z = lse_s(alpha + final), summed over the states in order; the
+    // alpha buffer not holding the last alpha is free after the barrier
+    float* red = abuf + (cur ^ 1) * S;
+    if (live) {
+        red[s] = __fadd_rn(a, fmaxf(-final_cost[(size_t)b * S + s], KHG_NEG_BIG));
+    }
+    __syncthreads();
+    if (s == 0) {
+        float m = -INFINITY;
+        for (int i = 0; i < S; ++i) m = fmaxf(m, red[i]);
+        const float ms = safe_max(m);
+        float sum = 0.f;
+        for (int i = 0; i < S; ++i) sum = __fadd_rn(sum, expf(__fsub_rn(red[i], ms)));
+        log_z[b] = lse_finish(m, sum, ms);
+    }
+}
+
+__global__ void __launch_bounds__(1024) banded_fb_bwd_kernel(
+    const float* __restrict__ plane_cost,    // (B, DK, S)
+    const int32_t* __restrict__ state_pdf,   // (B, S)
+    const float* __restrict__ final_cost,    // (B, S)
+    const float* __restrict__ loglikes,      // (B, T, P)
+    const int32_t* __restrict__ num_frames,  // (B,)
+    const int32_t* __restrict__ offsets,     // (DK,)
+    const float* __restrict__ alphas,        // (B, T, S)
+    const float* __restrict__ log_z,         // (B,)
+    float* __restrict__ spost,               // (B, T, S) out
+    float* __restrict__ apost,               // (B, DK, S) out
+    int DK, int S, int T, int P, float scale)
+{
+    extern __shared__ float smem[];
+    float* nc = smem;                                    // DK * S
+    float* abuf = nc + (size_t)DK * S;                   // 2 * S: alpha_t
+    float* pbuf = abuf + 2 * S;                          // 2 * S: beta' + sac_t
+    int* offs = reinterpret_cast<int*>(pbuf + 2 * S);    // DK
+
+    const int b = blockIdx.x;
+    const int s = threadIdx.x;
+    const int nt = blockDim.x;
+    const bool live = s < S;
+    int nf = num_frames[b];
+    if (nf > T) nf = T;
+    if (nf < 0) nf = 0;
+
+    const float* pc = plane_cost + (size_t)b * DK * S;
+    for (int i = s; i < DK * S; i += nt) nc[i] = -pc[i];
+    for (int i = s; i < DK; i += nt) {
+        const int o = offsets[i] % S;
+        offs[i] = o < 0 ? o + S : o;
+    }
+
+    float* spb = spost + (size_t)b * T * S;
+    float* apb = apost + (size_t)b * DK * S;
+    float beta = KHG_NEG_BIG;
+    int pdf = 0;
+    if (live) {
+        beta = fmaxf(-final_cost[(size_t)b * S + s], KHG_NEG_BIG);
+        pdf = state_pdf[(size_t)b * S + s];
+        for (int t = nf; t < T; ++t) spb[(size_t)t * S + s] = 0.f;
+        for (int d = 0; d < DK; ++d) apb[(size_t)d * S + s] = 0.f;
+    }
+    const float lz = log_z[b];
+    __syncthreads();
+
+    const float* llb = loglikes + (size_t)b * T * P;
+    const float* ab = alphas + (size_t)b * T * S;
+    int k = 0;
+    for (int t = nf - 1; t >= 0; --t) {
+        float* al = abuf + k * S;
+        float* bp = pbuf + k * S;
+        float bplus = 0.f;
+        if (live) {
+            al[s] = ab[(size_t)t * S + s];
+            bplus = __fadd_rn(beta, __fmul_rn(scale, llb[(size_t)t * P + pdf]));
+            bp[s] = bplus;
+        }
+        __syncthreads();
+        if (live) {
+            // posteriors of the arcs into s
+            const float rest = __fsub_rn(bplus, lz);
+            float sp = 0.f;
+            for (int d = 0; d < DK; ++d) {
+                int src = s - offs[d];
+                if (src < 0) src += S;
+                const float lp = __fadd_rn(
+                    __fadd_rn(al[src], nc[d * S + s]), rest);
+                const float p = expf(fminf(lp, 0.f));
+                sp = __fadd_rn(sp, p);
+                float* cell = apb + (size_t)d * S + s;
+                *cell = __fadd_rn(*cell, p);
+            }
+            spb[(size_t)t * S + s] = sp;
+            // beta through the arcs out of s: s -> s + off[d]
+            float m = -INFINITY;
+            for (int d = 0; d < DK; ++d) {
+                int dst = s + offs[d];
+                if (dst >= S) dst -= S;
+                m = fmaxf(m, __fadd_rn(bp[dst], nc[d * S + dst]));
+            }
+            const float ms = safe_max(m);
+            float sum = 0.f;
+            for (int d = 0; d < DK; ++d) {
+                int dst = s + offs[d];
+                if (dst >= S) dst -= S;
+                const float c = __fadd_rn(bp[dst], nc[d * S + dst]);
+                sum = __fadd_rn(sum, expf(__fsub_rn(c, ms)));
+            }
+            beta = lse_finish(m, sum, ms);
+        }
+        k ^= 1;
+    }
+}
+
+int threads_for(int S) { return ((S + 31) / 32) * 32; }
+
+// nbuf S-float buffers, each double-buffered, beside the plane costs
+size_t smem_bytes(int DK, int S, int nbuf) {
+    return ((size_t)DK * S + 2 * (size_t)nbuf * S) * 4 + (size_t)DK * 4;
+}
+
+}  // namespace
+
+extern "C" int launch_banded_fb_fwd(
+    const void* plane_cost, const void* state_pdf, const void* init_cost,
+    const void* final_cost, const void* loglikes, const void* num_frames,
+    const void* offsets, void* alphas, void* log_z, int B, int DK, int S,
+    int T, int P, float scale, void* stream)
+{
+    const int nt = threads_for(S);
+    if (nt > 1024) return (int)cudaErrorInvalidValue;
+    const size_t smem = smem_bytes(DK, S, 1);
+    cudaError_t err = cudaFuncSetAttribute(
+        banded_fb_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (B == 0) return 0;
+    banded_fb_fwd_kernel<<<B, nt, smem, (cudaStream_t)stream>>>(
+        (const float*)plane_cost, (const int32_t*)state_pdf,
+        (const float*)init_cost, (const float*)final_cost,
+        (const float*)loglikes, (const int32_t*)num_frames,
+        (const int32_t*)offsets, (float*)alphas, (float*)log_z,
+        DK, S, T, P, scale);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int launch_banded_fb_bwd(
+    const void* plane_cost, const void* state_pdf, const void* final_cost,
+    const void* loglikes, const void* num_frames, const void* offsets,
+    const void* alphas, const void* log_z, void* spost, void* apost,
+    int B, int DK, int S, int T, int P, float scale, void* stream)
+{
+    const int nt = threads_for(S);
+    if (nt > 1024) return (int)cudaErrorInvalidValue;
+    const size_t smem = smem_bytes(DK, S, 2);
+    cudaError_t err = cudaFuncSetAttribute(
+        banded_fb_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (B == 0) return 0;
+    banded_fb_bwd_kernel<<<B, nt, smem, (cudaStream_t)stream>>>(
+        (const float*)plane_cost, (const int32_t*)state_pdf,
+        (const float*)final_cost, (const float*)loglikes,
+        (const int32_t*)num_frames, (const int32_t*)offsets,
+        (const float*)alphas, (const float*)log_z, (float*)spost,
+        (float*)apost, DK, S, T, P, scale);
+    return (int)cudaGetLastError();
+}

@@ -1,17 +1,20 @@
-// Dependent-step latencies on the card, for the serial bound of the
-// banded Viterbi kernel (banded_viterbi.cu).  Not a kernel of any path:
-// chip_smoke.py calls it once to turn kernel A's dependency chain into
-// a least time.
+// Dependent-step latencies on the card, for the serial bounds of the
+// banded Viterbi and forward-backward kernels (banded_viterbi.cu,
+// banded_fb.cu).  Not a kernel of any path: chip_smoke.py calls it once
+// to turn each kernel's dependency chain into a least time.
 //
-// Whatever its design, banded Viterbi runs its frames one after another
+// Whatever their design, both run their frames one after another
 // (frame t+1 reads every alpha of frame t, so the states must exchange
-// values once per frame), and its backtrace is a chain of dependent
-// reads.  One block of 256 threads times, on the %globaltimer clock:
+// values once per frame); Viterbi's backtrace is a chain of dependent
+// reads, and a forward-backward frame adds one expf and one logf to the
+// chain.  One block of 256 threads times, on the %globaltimer clock:
 //
 //   out[0]: `iters` frame steps of the least form: read a neighbour's
 //           value from shared memory, add, min, write, block barrier;
 //   out[1]: `iters` dependent (add, min) pairs in one thread;
-//   out[2]: `iters` dependent shared-memory reads (a pointer chase).
+//   out[2]: `iters` dependent shared-memory reads (a pointer chase);
+//   out[4]: `iters` dependent precise expf calls in one thread;
+//   out[5]: `iters` dependent precise logf calls in one thread.
 //
 // out[3] keeps the results live.  All times are in nanoseconds.
 
@@ -32,7 +35,7 @@ __device__ __forceinline__ long long global_ns(int dep) {
 
 __global__ void __launch_bounds__(NT) latency_probe_kernel(
     const float* __restrict__ in,  // (2 * NT,)
-    long long* __restrict__ out,   // (4,)
+    long long* __restrict__ out,   // (6,)
     int iters)
 {
     __shared__ float buf[2][NT];
@@ -58,11 +61,21 @@ __global__ void __launch_bounds__(NT) latency_probe_kernel(
     int j = s;
     for (int i = 0; i < iters; ++i) j = chase[j];
     const long long t3 = global_ns(j);
+    // each chain starts from the clock read before it, so it cannot be
+    // scheduled ahead of that read
+    float e = (float)(t3 & 1);  // in [0, 1]: expf(-e) stays in [0.36, 1]
+    for (int i = 0; i < iters; ++i) e = expf(-e);
+    const long long t4 = global_ns(__float_as_int(e));
+    float l = e + (float)(t4 & 1);  // in [0, 2]: logf(l + 2) stays in [0.69, 1.4]
+    for (int i = 0; i < iters; ++i) l = logf(l + 2.0f);
+    const long long t5 = global_ns(__float_as_int(l));
     if (s == 0) {
         out[0] = t1 - t0;
         out[1] = t2 - t1;
         out[2] = t3 - t2;
-        out[3] = (long long)__float_as_int(x) + j;
+        out[3] = (long long)__float_as_int(x) + j + __float_as_int(l);
+        out[4] = t4 - t3;
+        out[5] = t5 - t4;
     }
 }
 

@@ -38,6 +38,8 @@ LAUNCHES: Dict[str, int] = {
     "banded_viterbi": 0,
     "fused_loglikes": 0,
     "fbank": 0,
+    "banded_fb_fwd": 0,
+    "banded_fb_bwd": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -55,6 +57,12 @@ _SIGNATURES = {
     # wave, m_re, m_im, mel_t, feats, energy, B, L, T, shift, flen, F, M,
     # remove_dc, use_power, use_log, log_energy_floor, stream
     "launch_fbank": [_P] * 6 + [_I] * 10 + [_F, _P],
+    # plane_cost, state_pdf, init, final, loglikes, nf, offsets, alphas,
+    # log_z, B, DK, S, T, P, scale, stream
+    "launch_banded_fb_fwd": [_P] * 9 + [_I] * 5 + [_F, _P],
+    # plane_cost, state_pdf, final, loglikes, nf, offsets, alphas, log_z,
+    # spost, apost, B, DK, S, T, P, scale, stream
+    "launch_banded_fb_bwd": [_P] * 10 + [_I] * 5 + [_F, _P],
     # in, out, iters, stream (a measurement probe, not a path's kernel)
     "launch_latency_probe": [_P, _P, _I, _P],
 }

@@ -1,5 +1,5 @@
 """Batched device E-step: align utterances and accumulate statistics
-(PyTorch port of khg_tpu/recipes/pipeline.py, hard-EM path).
+(PyTorch port of khg_tpu/recipes/pipeline.py: hard EM and soft EM).
 
 Bridges the host world (ragged utterances, FST graphs, mutable models)
 and the device world (padded dense tensors, CUDA kernels):
@@ -11,7 +11,9 @@ and the device world (padded dense tensors, CUDA kernels):
   3. batch utterances by length and pad each batch's (T, S),
   4. per batch: GMM scoring -> Viterbi (banded CUDA kernel, or the
      eager DP for batches that do not fit a band) -> stats fold into a
-     Kahan-compensated f32 carry,
+     Kahan-compensated f32 carry; soft EM runs forward-backward
+     instead (banded CUDA kernels, or the eager dense FB) and folds
+     posterior-weighted stats into the same carry,
   5. per pass: dense M-step and transition update on the device; the
      host fetches one record block at the end of a multi-pass stretch.
 
@@ -19,17 +21,21 @@ Carry layout (one flat f32 vector):
   [occ (P*K), mean_acc (P*K*D), var_acc (P*K*D), tot_log_like,
    tot_frames, tid_counts (num_tids+1), like_sum, num_done, num_error,
    frame_count]
+(soft EM: like_sum is the sum of log Z and frame_count is 0.)
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from khg_tpu_torch.align.banded_fb import fb_kernel_fits, forward_backward_banded
 from khg_tpu_torch.align.banded_kernel import kernel_fits, viterbi_align_banded
+from khg_tpu_torch.align.forward_backward import FBResult, forward_backward_batch
 from khg_tpu_torch.align.packed import (
     FAIL_PAD_THRESHOLD,
     PackedGraph,
@@ -42,10 +48,15 @@ from khg_tpu_torch.fstlib.fst import VectorFst
 from khg_tpu_torch.gmm.am_gmm import AmDiagGmm
 from khg_tpu_torch.gmm.fused_loglikes import loglikes_fused
 from khg_tpu_torch.gmm.likelihoods import component_scores
+from khg_tpu_torch.graph.h_builder import (
+    _scaled_transition_log_prob,
+    add_transition_probs,
+)
 from khg_tpu_torch.model.transition_model import TransitionModel
 from khg_tpu_torch.stats.accum import (
     AccumAmDiagGmm,
     accumulate_am_stats,
+    accumulate_am_stats_soft,
     accumulate_transition_stats,
     segment_sum,
 )
@@ -112,18 +123,39 @@ def _carry_fold(
     counts = segment_sum(fw.reshape(-1), tids.long().reshape(-1), id2pdf.shape[0])
     counts[0] = 0.0
     okf = ok.to(torch.float32)
-    x = torch.cat([
+    x = _carry_row(s, counts, torch.sum(-total_cost * okf), failed,
+                   torch.sum(lens.to(torch.float32) * okf))
+    return _kahan_add(carry, comp, x)
+
+
+def _carry_row(s, counts, like_sum, failed, frame_count):
+    """One batch's contribution in the carry layout (module docstring)."""
+    return torch.cat([
         s.occ.reshape(-1),
         s.mean_acc.reshape(-1),
         s.var_acc.reshape(-1),
         s.tot_log_like[None],
         s.tot_frames[None],
         counts,
-        torch.sum(-total_cost * okf)[None],
-        torch.sum(okf)[None],
+        like_sum[None],
+        torch.sum((~failed).to(torch.float32))[None],
         torch.sum(failed.to(torch.float32))[None],
-        torch.sum(lens.to(torch.float32) * okf)[None],
+        frame_count[None],
     ])
+
+
+def _soft_carry_fold(gconsts, miv, iv, bfeats, fb: FBResult, carry, comp,
+                     scores=None):
+    """Fold one forward-backward batch's soft stats into the carry (the
+    layout of _carry_fold, so the same finisher works; frame_count is 0:
+    FB has no hard assignment).  Utterances with no complete path add
+    nothing but their failure."""
+    ok = ~fb.failed
+    gamma = torch.where(ok[:, None, None], fb.gamma, 0.0)
+    s = accumulate_am_stats_soft(gconsts, miv, iv, bfeats, gamma, scores=scores)
+    counts = torch.sum(torch.where(ok[:, None], fb.tid_counts, 0.0), dim=0)
+    x = _carry_row(s, counts, torch.sum(torch.where(ok, fb.log_z, 0.0)),
+                   fb.failed, torch.zeros((), device=carry.device))
     return _kahan_add(carry, comp, x)
 
 
@@ -153,7 +185,9 @@ class EStepPipeline:
         ``align_backend``: "xla" (eager DP over incoming-arc tables) or
         "banded" (the banded CUDA kernel wherever a batch fits a band
         menu with fewer than 128 planes and no parallel arcs; the eager
-        DP otherwise).  Both are exact.
+        DP otherwise).  Both are exact.  Soft EM picks the same way
+        between the banded forward-backward kernels (no parallel arcs,
+        tables within a block's shared memory) and the eager dense FB.
 
         ``feature_cache_budget``: bytes of padded feature batches kept
         on the device across calls, keyed on the utterance arrays'
@@ -218,15 +252,16 @@ class EStepPipeline:
             self._feat_cache_bytes += bfeats_np.nbytes
         return bfeats, lens, bt
 
-    def _batch_graphs(self, idx, packed_graphs):
+    def _batch_graphs(self, idx, packed_graphs, fb: bool = False):
         """(graphs, banded, state_pdf) device tables for these
         utterances, cached on the PackedGraph objects' identity.
 
         ``banded`` is (BandedTables, offsets) when the batch takes the
-        banded kernel, else None; ``state_pdf`` is the (B, S) uniform
+        banded kernel(s), else None; ``state_pdf`` is the (B, S) uniform
         destination pdf for the eager DP (None when banded, or when
-        the graphs are not destination-uniform)."""
-        key = (self.states_pad, self.indeg_pad,
+        the graphs are not destination-uniform).  ``fb`` packs for
+        forward-backward: log-semiring costs, banded FB kernels."""
+        key = (fb, self.states_pad, self.indeg_pad,
                tuple(id(packed_graphs[i]) for i in idx))
         hit = self._batch_graph_cache.get(key)
         if hit is not None:
@@ -235,9 +270,10 @@ class EStepPipeline:
             [packed_graphs[i] for i in idx],
             states_pad_to=self.states_pad,
             indeg_pad_to=self.indeg_pad,
+            semiring="log" if fb else "tropical",
         )
         banded = (
-            self._try_pack_banded(graphs)
+            self._try_pack_banded(graphs, fb=fb)
             if self.align_backend == "banded" else None
         )
         sp = None if banded is not None else uniform_dest_pdf(graphs)
@@ -268,29 +304,46 @@ class EStepPipeline:
         cell = (bs.astype(np.int64) * S + ss) * S + src
         return len(np.unique(cell)) == len(cell)
 
-    def _try_pack_banded(self, graphs):
+    def _try_pack_banded(self, graphs, fb: bool = False):
         """(BandedTables, offsets) for this batch, or None for the eager
-        DP: no band menu covers the arcs, 128+ planes (int8
-        backpointers), parallel arcs (the per-pass cost deltas would not
-        be exact), or plane tables beyond a block's shared memory."""
+        DP: no band menu covers the arcs, parallel arcs (the per-pass
+        cost deltas would not be exact; FB would also lose their mass),
+        or tables the kernel does not take (Viterbi: 128+ planes for its
+        int8 backpointers; both: beyond a block's shared memory).
+        Decided from shapes alone, before any launch."""
         from khg_tpu_torch.align.banded import band_renumber, pack_banded
 
-        if not self._banded_parallel_free(graphs):
+        # FB packing rejects parallel arcs itself (reject_parallel)
+        if not fb and not self._banded_parallel_free(graphs):
             return None
         ren, _perm = band_renumber(graphs)
         sp = uniform_dest_pdf(ren)
         if sp is None:
             return None
-        out = pack_banded(ren, sp)
+        out = pack_banded(ren, sp, reject_parallel=fb)
         if out is None:
             return None
         banded, offsets = out
         _B, DK, S = banded.plane_cost.shape
-        if not kernel_fits(DK, S):
+        if not (fb_kernel_fits if fb else kernel_fits)(DK, S):
             return None
         return banded_to_torch(banded, self.device), offsets
 
     # ------------------------------------------------------------ packing
+
+    def pack_graphs(self, graphs: Sequence[VectorFst]) -> List[PackedGraph]:
+        """Apply the current transition probs (align-time scales) and
+        pack.  Mirrors gmm_align_compiled: scaled transition costs are
+        ADDED to the compile-time graph costs, on a copy."""
+        id2pdf = self.tm.id2pdf_array()
+        packed = []
+        for g in graphs:
+            gc = g.copy()
+            add_transition_probs(
+                self.tm, gc, self.transition_scale, self.self_loop_scale
+            )
+            packed.append(pack_graph(gc, id2pdf))
+        return packed
 
     def pack_graphs_base(
         self, graphs: Sequence[VectorFst]
@@ -299,6 +352,46 @@ class EStepPipeline:
         the current per-tid cost deltas on the device."""
         id2pdf = self.tm.id2pdf_array()
         return [pack_graph(g, id2pdf) for g in graphs]
+
+    def transition_cost_deltas(self) -> np.ndarray:
+        """(num_tids+1,) f32: -scaled log P(tid) under the CURRENT
+        transition model (index 0 = 0), as add_transition_probs applies
+        per arc (hmm-utils.cc:442-493)."""
+        n = self.tm.num_transition_ids
+        d = np.zeros(n + 1, dtype=np.float32)
+        for tid in range(1, n + 1):
+            d[tid] = -_scaled_transition_log_prob(
+                self.tm, tid, self.transition_scale, self.self_loop_scale
+            )
+        return d
+
+    def refresh_transition_costs(
+        self, base: Sequence[PackedGraph]
+    ) -> List[PackedGraph]:
+        """Packed graphs with the current transition probs applied.
+
+        Equivalent to pack_graphs on the original FSTs up to f32
+        association (the delta adds after the eps-prefix sum instead of
+        before); eps paths carry no tids, so exactly one delta applies
+        per packed arc.  Padding survives: delta[tid=0] = 0."""
+        d = self.transition_cost_deltas()
+        out = []
+        for pg in base:
+            repl = dict(
+                in_cost=(pg.in_cost + d[pg.in_tid]).astype(np.float32),
+                out_cost=(pg.out_cost + d[pg.out_tid]).astype(np.float32),
+            )
+            if pg.in_cost_log is not None:
+                # paths combined into one slot share the tid, so the
+                # delta commutes with the log-add: exact
+                repl["in_cost_log"] = (
+                    pg.in_cost_log + d[pg.in_tid]
+                ).astype(np.float32)
+                repl["out_cost_log"] = (
+                    pg.out_cost_log + d[pg.out_tid]
+                ).astype(np.float32)
+            out.append(dataclasses.replace(pg, **repl))
+        return out
 
     def _pack_model(self, am: AmDiagGmm):
         """(gconsts, means_invvars, inv_vars) f32 tensors on the device."""
@@ -411,6 +504,48 @@ class EStepPipeline:
         row = torch.cat([scalars, tail, objf_t[None], count_t[None]])
         return new_model, logp_new, delta, row
 
+    def _fb_batch(self, gconsts, miv, iv, bfeats, lens, graphs, banded,
+                  state_pdf, delta=None, time_chunk=None):
+        """Scoring + forward-backward of one batch, with the current
+        cost deltas when given: (FBResult, component scores or None).
+        The cost-delta shortcut is exact on both routes: the banded
+        packing for FB rejects parallel arcs, and the dense tables keep
+        every arc."""
+        ll, scores = self._score(gconsts, miv, iv, bfeats)
+        num_tids = self.tm.num_transition_ids
+        if banded is not None:
+            tables, offsets = banded
+            if delta is not None:
+                tables = tables._replace(
+                    plane_cost=tables.plane_cost + delta[tables.plane_tid.long()]
+                )
+            fb = forward_backward_banded(
+                tables, offsets, ll, lens, num_tids,
+                acoustic_scale=self.acoustic_scale,
+            )
+        else:
+            if delta is not None:
+                graphs = graphs._replace(
+                    in_cost=graphs.in_cost + delta[graphs.in_tid.long()],
+                    out_cost=graphs.out_cost + delta[graphs.out_tid.long()],
+                )
+            fb = forward_backward_batch(
+                graphs, ll, lens, num_tids,
+                acoustic_scale=self.acoustic_scale, state_pdf=state_pdf,
+                time_chunk=time_chunk,
+            )
+        return fb, scores
+
+    def _soft_estep_batch(self, gconsts, miv, iv, bfeats, lens, graphs,
+                          banded, state_pdf, delta, carry, comp):
+        """Scoring + forward-backward + soft stats fold of one batch."""
+        fb, scores = self._fb_batch(
+            gconsts, miv, iv, bfeats, lens, graphs, banded, state_pdf, delta
+        )
+        return _soft_carry_fold(
+            gconsts, miv, iv, bfeats, fb, carry, comp, scores=scores
+        )
+
     def em_passes_resident(
         self,
         model,
@@ -437,6 +572,44 @@ class EStepPipeline:
         (P, K) occupancies.  The host TransitionModel is synced to the
         final device state before returning; sync the GMM side with
         apply_model_to_am."""
+        if int(self.id2pdf.max()) + 1 > EXTERNAL_AC_PDFS:
+            raise NotImplementedError(
+                f"models with more than {EXTERNAL_AC_PDFS} pdfs need "
+                "per-state scoring, which is not ported yet"
+            )
+        return self._resident_passes(
+            model, base_packed_graphs, feats, passes, mle_config,
+            transition_cfg, fb=False, return_occ=return_occ,
+        )
+
+    def fb_em_passes_resident(
+        self,
+        model,
+        base_packed_graphs: Sequence[PackedGraph],
+        feats: Sequence[np.ndarray],
+        passes: int,
+        mle_config=None,
+        transition_cfg=None,
+    ):
+        """Soft-EM (Baum-Welch) twin of em_passes_resident: ``passes``
+        consecutive forward-backward EM passes, all on the device.  The
+        transition update runs on the EXPECTED tid counts (the same
+        accumulate/update path as the reference, mle-diag-gmm.cc:100-158,
+        fed by posteriors instead of a hard alignment).
+
+        Returns (new_model, records); rows are [tot_log_like,
+        tot_frames, log_z_sum, num_done, num_error, 0, t_objf, t_count]
+        (frame_count is 0: FB has no hard assignment)."""
+        return self._resident_passes(
+            model, base_packed_graphs, feats, passes, mle_config,
+            transition_cfg, fb=True,
+        )
+
+    def _resident_passes(self, model, base_packed_graphs, feats, passes,
+                         mle_config, transition_cfg, fb: bool,
+                         return_occ: bool = False):
+        """The resident loop of em_passes_resident (``fb=False``) and
+        fb_em_passes_resident (``fb=True``)."""
         from khg_tpu_torch.model.transition_device import (
             build_transition_struct,
             transition_cost_deltas_device,
@@ -449,11 +622,6 @@ class EStepPipeline:
         gconsts, miv, iv, weights = model
         P, K = gconsts.shape
         D = miv.shape[-1]
-        if int(self.id2pdf.max()) + 1 > EXTERNAL_AC_PDFS:
-            raise NotImplementedError(
-                f"models with more than {EXTERNAL_AC_PDFS} pdfs need "
-                "per-state scoring, which is not ported yet"
-            )
         num_tids = self.tm.num_transition_ids
         tcfg = transition_cfg or MleTransitionUpdateConfig()
         assert not tcfg.share_for_pdfs, (
@@ -473,21 +641,22 @@ class EStepPipeline:
             idx = order[lo : lo + self.batch_size]
             bfeats, lens, _bt = self._batch_feats(idx, feats)
             graphs, banded, state_pdf = self._batch_graphs(
-                idx, base_packed_graphs
+                idx, base_packed_graphs, fb=fb
             )
             batches.append((bfeats, lens, graphs, banded, state_pdf))
 
+        step = self._soft_estep_batch if fb else self._estep_batch
         kw = _mstep_kwargs(mle_config)
         width = _carry_width(P, K, D, num_tids)
         rows = []
         occ_carry = None
         total_frames = sum(f.shape[0] for f in feats) * passes
-        with self.counters.phase("align", frames=total_frames):
+        with self.counters.phase("fb" if fb else "align", frames=total_frames):
             for _ in range(passes):
                 carry = torch.zeros(width, dtype=torch.float32, device=self.device)
                 comp = torch.zeros_like(carry)
                 for bfeats, lens, graphs, banded, state_pdf in batches:
-                    carry, comp = self._estep_batch(
+                    carry, comp = step(
                         gconsts, miv, iv, bfeats, lens, graphs, banded,
                         state_pdf, delta, carry, comp,
                     )
@@ -509,11 +678,62 @@ class EStepPipeline:
         n_err = rec[:, 4].sum()
         if n_err:
             logger.warning(
-                "Alignment failed for %d utterance-passes", int(round(n_err))
+                "%s failed for %d utterance-passes",
+                "Forward-backward" if fb else "Alignment", int(round(n_err)),
             )
         if return_occ:
             return (gconsts, miv, iv, weights), rec, occ
         return (gconsts, miv, iv, weights), rec
+
+    def accumulate_forward_backward(
+        self,
+        am: AmDiagGmm,
+        packed_graphs: Sequence[PackedGraph],
+        feats: Sequence[np.ndarray],
+        gmm_accs: AccumAmDiagGmm,
+        transition_accs: Optional[np.ndarray] = None,
+    ) -> float:
+        """Soft E-step: Baum-Welch posteriors instead of a hard
+        alignment, on graphs that already carry the transition probs
+        (pack_graphs or refresh_transition_costs).  Every batch folds
+        into the device carry; ONE fetch for the whole pass.  Dense
+        batches longer than 1,024 frames keep one alpha in 256 frames
+        (forward_backward_batch's ``time_chunk``).
+
+        Returns the total data log-likelihood (the sum of log Z)."""
+        if len(packed_graphs) != len(feats):
+            raise ValueError("one packed graph per utterance")
+        gconsts, miv, iv = self._pack_model(am)
+        P, K = gconsts.shape
+        D = miv.shape[-1]
+        num_tids = self.tm.num_transition_ids
+        n = len(feats)
+        order = sorted(range(n), key=lambda i: feats[i].shape[0])
+        width = _carry_width(P, K, D, num_tids)
+        carry = torch.zeros(width, dtype=torch.float32, device=self.device)
+        comp = torch.zeros_like(carry)
+        for lo in range(0, n, self.batch_size):
+            idx = order[lo : lo + self.batch_size]
+            bfeats, lens, bt = self._batch_feats(idx, feats)
+            graphs, banded, sp = self._batch_graphs(idx, packed_graphs, fb=True)
+            fb, scores = self._fb_batch(
+                gconsts, miv, iv, bfeats, lens, graphs, banded, sp,
+                time_chunk=256 if sp is not None and bt > 1024 else None,
+            )
+            carry, comp = _soft_carry_fold(
+                gconsts, miv, iv, bfeats, fb, carry, comp, scores=scores
+            )
+        flat = carry.cpu().numpy().astype(np.float64)
+        (occ, mean_acc, var_acc, tot_ll, tot_frames, counts, log_z_sum,
+         _num_done, num_error, _) = _unpack_carry(flat, P, K, D, num_tids)
+        if num_error:
+            logger.warning(
+                "Forward-backward failed for %d of %d utterances", num_error, n
+            )
+        gmm_accs.add_dense(occ, mean_acc, var_acc, tot_ll, tot_frames)
+        if transition_accs is not None:
+            transition_accs += counts
+        return log_z_sum
 
     def accumulate_from_alignments(
         self,

@@ -8,7 +8,9 @@ pass computes per-component posteriors of each frame's pdf and reduces
 the three stats tensors with a sorted segment sum over the pdf axis
 (``segment_sum``), where khg_tpu used one-hot GEMMs (exact segment sums
 on the TPU's MXU).  ``accumulate_transition_stats`` counts aligned
-transition ids the same way.  Replaces the reference's per-frame Eigen loop
+transition ids the same way.  ``accumulate_am_stats_soft`` is the
+Baum-Welch variant: every frame weighted by its pdf posteriors.
+Replaces the reference's per-frame Eigen loop
 (reference kaldi-hmm-gmm/csrc/mle-diag-gmm.cc:100-158,
 mle-am-diag-gmm.cc:41-53).
 """
@@ -276,6 +278,41 @@ def accumulate_am_stats(
     return DenseStats(
         occ, pkx[..., :D], pkx[..., D:], tot_log_like, torch.sum(w)
     )
+
+
+def accumulate_am_stats_soft(
+    gconsts: torch.Tensor,        # (P, K)
+    means_invvars: torch.Tensor,  # (P, K, D)
+    inv_vars: torch.Tensor,       # (P, K, D)
+    feats: torch.Tensor,          # (B, T, D)
+    gamma: torch.Tensor,          # (B, T, P) per-frame pdf posteriors
+    scores: Optional[torch.Tensor] = None,  # (B, T, P, K) precomputed
+) -> DenseStats:
+    """Soft-EM (Baum-Welch) stats: every frame contributes to every pdf
+    weighted by its occupation posterior gamma[t, p].
+
+    Uses full per-component scores (B, T, P, K): memory O(B·T·P·K),
+    fine for monophone-scale P; pass ``scores`` when the caller already
+    computed them for scoring.  The moments are one product over the
+    frames (``einsum``), as khg_tpu leaves them to XLA."""
+    from khg_tpu_torch.gmm.likelihoods import component_scores
+
+    P, K, D = means_invvars.shape
+    B, T, _ = feats.shape
+    N = B * T
+    x = feats.reshape(N, D)
+    w = gamma.reshape(N, P)
+    if scores is None:
+        scores = component_scores(gconsts, means_invvars, inv_vars, feats)
+    scores = scores.reshape(N, P, K)
+    post = torch.softmax(scores, dim=-1) * w[..., None]  # (N, P, K)
+    # total log-like under the soft alignment: sum_t sum_p gamma * loglike
+    ll = torch.logsumexp(scores, dim=-1)                 # (N, P)
+    tot_log_like = torch.sum(torch.where(w > 0, ll * w, 0.0))
+    occ = torch.sum(post, dim=0)                         # (P, K)
+    xw = torch.cat([x, x * x], dim=1)                    # (N, 2D)
+    pkx = torch.einsum("npk,nd->pkd", post, xw)
+    return DenseStats(occ, pkx[..., :D], pkx[..., D:], tot_log_like, torch.sum(w))
 
 
 def accumulate_transition_stats(

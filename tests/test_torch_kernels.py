@@ -2,7 +2,8 @@
 on the card, at small and ragged shapes the main path does not reach
 (pdf and row tiles cut short, padding components, bf16 operands,
 states not a multiple of a warp, utterances of zero frames or too
-short to align, a last frame chunk cut short).
+short to align, a last frame chunk cut short, banded forward-backward
+with up to 128 planes or 400 states, utterances that all fail).
 
 These tests need an NVIDIA card and skip without one.  They import
 only the port, so they run where khg_tpu and jax are not installed;
@@ -16,7 +17,19 @@ import pytest
 import torch
 
 from khg_tpu_torch.align.banded import band_renumber, pack_banded
-from khg_tpu_torch.align.banded_kernel import banded_cuda, banded_plain
+from khg_tpu_torch.align.banded_fb import (
+    banded_fb_cuda,
+    banded_fb_plain,
+    fb_kernel_fits,
+    forward_backward_banded,
+)
+from khg_tpu_torch.align.banded_kernel import BandedTables, banded_cuda, banded_plain
+from khg_tpu_torch.align.forward_backward import (
+    NEG_BIG,
+    FBResult,
+    gamma_from_state_posteriors,
+    tid_counts_from_posteriors,
+)
 from khg_tpu_torch.align.packed import pack_graph, pack_graph_batch, uniform_dest_pdf
 from khg_tpu_torch.features.fbank import FbankConfig, num_frames
 from khg_tpu_torch.features.fbank_kernel import _padded_wave, fbank_cuda, fbank_plain
@@ -107,6 +120,123 @@ def test_banded_kernel(cuda_device, states_pad):
         assert torch.equal(ck, cp)
         assert torch.equal(tk, tp)
         assert bool(ck[3] >= 1e29) and bool(ck[:3].lt(1e29).all())
+
+
+def _fb_pair(tables, offsets, ll, nf, scale, num_tids):
+    """(kernels' FBResult, plain FBResult) on the same inputs."""
+    out = []
+    for fn in (banded_fb_cuda, banded_fb_plain):
+        log_z, spost, apost = fn(tables, offsets, ll, nf, scale)
+        out.append(FBResult(
+            log_z,
+            gamma_from_state_posteriors(spost, tables.state_pdf, ll.shape[2]),
+            tid_counts_from_posteriors(apost, tables.plane_tid, num_tids),
+            log_z < NEG_BIG / 2,
+        ))
+    torch.cuda.synchronize()
+    return out
+
+
+def _assert_fb_close(k, p, ok=None):
+    """log Z rtol 1e-5, gamma atol 1e-4, tid counts atol 1e-3 (where
+    ``ok``), failures equal."""
+    assert torch.equal(k.failed, p.failed)
+    assert torch.allclose(k.log_z, p.log_z, rtol=1e-5, atol=0)
+    ok = torch.ones_like(k.failed) if ok is None else ok
+    assert float((k.gamma - p.gamma)[ok].abs().max()) <= 1e-4
+    assert float((k.tid_counts - p.tid_counts)[ok].abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("states_pad", [8, 256])
+def test_banded_fb_kernels(cuda_device, states_pad):
+    """Digit training graphs packed for FB, including an utterance too
+    short to align and one of zero frames."""
+    seqs = [[DIGITS[d] for d in s] for s in
+            ([1], [2, 3], [4, 5, 6], [7], [0, 9])]
+    tm, packed = _digit_graphs(seqs)
+    arrays = pack_graph_batch(packed, states_pad_to=states_pad,
+                              indeg_pad_to=2, semiring="log")
+    ren, _ = band_renumber(arrays)
+    banded, offsets = pack_banded(ren, uniform_dest_pdf(ren), reject_parallel=True)
+    tables = banded_to_torch(banded, cuda_device)
+    assert fb_kernel_fits(len(offsets), tables.plane_cost.shape[2])
+    rng = np.random.default_rng(8)
+    P = int(tm.id2pdf_array().max()) + 1
+    ll = torch.as_tensor(
+        (-30 + 6 * rng.standard_normal((5, 128, P))).astype(np.float32),
+        device=cuda_device,
+    )
+    nf = torch.as_tensor(np.array([40, 75, 120, 2, 0], np.int32),
+                         device=cuda_device)
+    for scale in (0.1, 1.0):
+        k, p = _fb_pair(tables, offsets, ll, nf, scale, tm.num_transition_ids)
+        assert k.failed.tolist() == [False, False, False, True, True]
+        _assert_fb_close(k, p, ok=~p.failed)
+    got = forward_backward_banded(tables, offsets, ll, nf,
+                                  tm.num_transition_ids, 0.1)
+    torch.cuda.synchronize()
+    sums = got.gamma[:3].sum(-1)
+    for i, n in enumerate((40, 75, 120)):
+        assert torch.allclose(sums[i, :n], torch.ones_like(sums[i, :n]), atol=1e-3)
+        assert float(sums[i, n:].abs().max()) == 0.0
+
+
+def _random_banded(rng, B, S, offsets, P, device, density=0.4):
+    """Random plane tables: arcs on a random share of the in-range plane
+    cells, states padded with unreachable ones past S - 7."""
+    DK = len(offsets)
+    s = np.arange(S)[None, None, :]
+    src = s - np.asarray(offsets)[None, :, None]
+    real = ((rng.uniform(size=(B, DK, S)) < density) & (src >= 0) & (src < S - 7)
+            & (s < S - 7))
+    big = np.float32(1e30)
+    cost = np.where(real, rng.uniform(0.1, 3.0, (B, DK, S)), big).astype(np.float32)
+    tid = np.where(real, rng.integers(1, 60, (B, DK, S)), 0).astype(np.int32)
+    init = np.full((B, S), big, np.float32)
+    init[:, 0] = 0.0
+    final = np.full((B, S), big, np.float32)
+    final[:, S - 20 : S - 7] = rng.uniform(0.0, 2.0, (B, 13))
+    return BandedTables(*[
+        torch.as_tensor(x, device=device) for x in (
+            cost, tid, rng.integers(0, P, (B, S)).astype(np.int32), init, final,
+        )
+    ])
+
+
+@pytest.mark.parametrize("DK,S", [(20, 37), (64, 300), (20, 400), (128, 200)],
+                         ids=["planes-20", "planes-64", "states-400", "planes-128"])
+def test_banded_fb_kernels_random(cuda_device, DK, S):
+    """Random tables, from the main path's plane count to 128 planes
+    and 400 states (a block of 13 warps)."""
+    rng = np.random.default_rng(DK * 1000 + S)
+    offsets = tuple(range(-4, DK - 4))
+    B, T, P = 6, 90, 23
+    tables = _random_banded(rng, B, S, offsets, P, cuda_device)
+    assert fb_kernel_fits(DK, S)
+    ll = torch.as_tensor((-20 + 4 * rng.standard_normal((B, T, P))).astype(np.float32),
+                         device=cuda_device)
+    nf = torch.as_tensor(np.array([90, 61, 33, 90, 7, 50], np.int32),
+                         device=cuda_device)
+    k, p = _fb_pair(tables, offsets, ll, nf, 0.3, 60)
+    assert not bool(p.failed[[0, 1, 2, 3, 5]].any())
+    _assert_fb_close(k, p, ok=~p.failed)
+
+
+def test_banded_fb_kernels_all_failed(cuda_device):
+    """No state is final: every utterance fails, log Z is NEG_BIG, and
+    the kernels still agree with the plain version on every output."""
+    rng = np.random.default_rng(21)
+    offsets = tuple(range(-4, 16))
+    B, S, T, P = 4, 64, 40, 11
+    tables = _random_banded(rng, B, S, offsets, P, cuda_device)
+    tables = tables._replace(final_cost=torch.full_like(tables.final_cost, 1e30))
+    ll = torch.as_tensor((-10 + 3 * rng.standard_normal((B, T, P))).astype(np.float32),
+                         device=cuda_device)
+    nf = torch.as_tensor(np.array([40, 12, 1, 0], np.int32), device=cuda_device)
+    k, p = _fb_pair(tables, offsets, ll, nf, 1.0, 60)
+    assert k.failed.all()
+    assert bool((k.log_z == np.float32(NEG_BIG)).all())
+    _assert_fb_close(k, p)
 
 
 @pytest.mark.parametrize("kw", [
