@@ -8,11 +8,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Toolchain: torch, CUDA, nvcc and the card's name and power limit.
 2. Build: the hand-written kernels from khg_tpu_torch/csrc with nvcc
    for sm_90a (one nvcc per source, in parallel).
-3. Corpus and kernel checks: synthesise 1,024 spoken-digit WAVs, then
-   hold each kernel against its plain PyTorch version at main-path
-   shapes, and time kernel, plain version and (where one exists) the
-   library call computing the same function.  Each kernel's bound is
-   worked out from this run's inputs; for banded Viterbi and banded
+3. Corpus and kernel checks: synthesise 1,024 spoken-digit WAVs and
+   build the triphone-bench system (682 single-phone words + SIL, 2,051
+   pdfs of 32 Gaussians over 80-dim features), then hold each kernel
+   against its plain PyTorch version at main-path shapes, and time
+   kernel, plain version and (where one exists) the library call
+   computing the same function.  Each kernel's bound is worked out from
+   this run's inputs; for the Viterbi kernels and banded
    forward-backward it includes the serial frame chain, whose step
    latencies csrc/latency_probe.cu times on the card.
 4. Main path: WAV -> extract_features (fbank kernel) -> train_corpus at
@@ -20,7 +22,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    padding), depth cut to 6 passes.  Launch counts are set to 0 just
    before and read just after.
 5. The fused-loglikes backend: 2 resident passes with
-   likelihood_backend="pallas" against the same passes with "xla".
+   likelihood_backend="pallas" against the same passes with "xla";
+   then 2 passes with align_backend="xla", every batch through the
+   non-banded Viterbi kernel.
 6. Soft EM: from phase 4's model, 2 resident Baum-Welch passes
    (fb_em_passes_resident) through the banded forward-backward
    kernels, run twice (are the records bit-identical?  the rerun times
@@ -28,6 +32,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    dense FB (align_backend="xla"), then one accumulate_forward_backward
    pass.  Launch counts are set to 0 just before the first run and read
    just after.
+7. Wide hard EM at the triphone-bench widths: 512 utterances of 300
+   standard-normal 80-dim frames over 16 distinct 3-word graphs (8
+   batches of 64), 3 resident passes with align_backend="banded", run
+   twice: per-state scoring, the banded kernel on that lattice and the
+   stats fold kernel (the rerun times each launch of both); then the
+   same passes through the narrow route (full-P fused loglikes, the
+   banded kernel on (B, T, P), the P-wide fold), which must agree.
 
 Prints a ``{"kernels": [...]}`` line, the card's nvidia-smi line, and as
 its last line ``{"ok": true, "device": {...}}``.  It needs one card and
@@ -98,26 +109,28 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def banded_shape(tables, offsets, loglikes, num_frames, *rest):
+    """(B, DK, S, T, num_frames) of a banded kernel wrapper's call."""
+    return (*tables.plane_cost.shape, loglikes.shape[1], num_frames)
+
+
 @contextlib.contextmanager
-def event_timed(module, names, calls):
-    """While inside, each call of ``module.<name>`` (a banded kernel
-    wrapper: tables, offsets, loglikes, num_frames, ...) is bracketed by
-    CUDA events: calls[name] collects (start, end, (B, DK, S, T,
-    num_frames)).  Nothing is synchronised; read the events after."""
+def event_timed(module, names, calls, describe=banded_shape):
+    """While inside, each call of ``module.<name>`` is bracketed by CUDA
+    events: calls[name] collects (start, end, describe(*args)).
+    Nothing is synchronised; read the events after."""
     import torch
 
     saved = {n: getattr(module, n) for n in names}
 
     def timed(name, fn):
-        def call(tables, offsets, loglikes, num_frames, *rest):
+        def call(*args, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = fn(tables, offsets, loglikes, num_frames, *rest)
+            out = fn(*args, **kw)
             end.record()
-            calls.setdefault(name, []).append(
-                (start, end, (*tables.plane_cost.shape, loglikes.shape[1], num_frames))
-            )
+            calls.setdefault(name, []).append((start, end, describe(*args)))
             return out
         return call
 
@@ -259,6 +272,21 @@ def make_corpus(wav_dir: Path):
     return load_audiomnist_corpus(wav_dir)
 
 
+def short_utterances(setup):
+    """(indices, frame counts, T): the 256 shortest utterances, all of
+    at most T=512 frames."""
+    import numpy as np
+
+    from khg_tpu_torch.features.fbank import num_frames
+
+    _lp, _tm0, _tree, _graphs, wave_lens, cfg = setup
+    nfr = np.array([num_frames(cfg, n) for n in wave_lens])
+    idx = [int(i) for i in np.argsort(nfr, kind="stable")[:256]]
+    if nfr[idx].max() > 512:
+        raise AssertionError("kernel checks: 256 utterances of <= 512 frames needed")
+    return idx, nfr, 512
+
+
 def banded_batch(setup, fb: bool):
     """The kernel checks' batch: the 256 shortest utterances (all of at
     most T=512 frames), packed as the main path packs them (S padded to
@@ -268,15 +296,10 @@ def banded_batch(setup, fb: bool):
     import numpy as np
     import torch
 
-    from khg_tpu_torch.features.fbank import num_frames
     from khg_tpu_torch.recipes.pipeline import EStepPipeline
 
     lp, tm0, tree, graphs, wave_lens, cfg = setup
-    nfr = np.array([num_frames(cfg, n) for n in wave_lens])
-    idx = [int(i) for i in np.argsort(nfr, kind="stable")[:256]]
-    T = 512
-    if nfr[idx].max() > T:
-        raise AssertionError("kernel checks: 256 utterances of <= 512 frames needed")
+    idx, nfr, T = short_utterances(setup)
     pipe = EStepPipeline(
         copy.deepcopy(tm0), acoustic_scale=0.1, self_loop_scale=0.1,
         batch_size=256, states_pad_multiple=256, frames_pad_multiple=256,
@@ -298,48 +321,62 @@ def banded_batch(setup, fb: bool):
     return pipe, tables, offsets, ll, nf, T, P
 
 
-def check_banded(setup, results):
-    """Kernel A at B=256, T=512, S=256 on real packed graphs."""
+def check_viterbi_kernel(results, name, label, source, replaces, kernel, plain,
+                         nbytes, ops, max_frames, width, S, shape):
+    """One Viterbi kernel (A, A-sac, G) against its plain version:
+    ``kernel()`` and ``plain()`` return (tids, total costs), which must
+    be bit-equal.  Times both, and bounds the kernel by the larger of
+    its throughput (``nbytes``, fp32 ``ops``) and its serial frame chain
+    (``max_frames`` frames, a min over ``width`` candidates, S states)."""
     import torch
 
+    tids_k, cost_k = kernel()
+    tids_p, cost_p = plain()
+    torch.cuda.synchronize()
+    if not torch.equal(cost_k, cost_p):
+        raise AssertionError(
+            f"kernel {label}: total costs not bit-equal "
+            f"(max diff {(cost_k - cost_p).abs().max().item()})"
+        )
+    if not torch.equal(tids_k, tids_p):
+        raise AssertionError(f"kernel {label}: tids differ from the plain version")
+    ms = time_ms(kernel, reps=10)
+    plain_ms = time_ms(plain, reps=2)
+    tp_ms, tp_by = bound(nbytes, ops, FP32_OPS_PER_S)
+    serial_ms, chain = serial_bound(max_frames, width, S)
+    b_ms, b_by = (serial_ms, "operations") if serial_ms > tp_ms else (tp_ms, tp_by)
+    results[name] = dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        max_abs_err=float((cost_k - cost_p).abs().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        throughput_bound_ms=tp_ms, serial_bound_ms=serial_ms,
+        serial_chain=chain, shape=shape,
+        tolerance="costs bit-equal, tids equal",
+    )
+    dims = " ".join(f"{k}={v}" for k, v in shape.items())
+    log(f"kernel {label} {name}: {dims}: bit-equal; {ms:.3f} ms (plain "
+        f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms {b_by}: serial "
+        f"{serial_ms:.4f}, throughput {tp_ms:.4f} {tp_by}; {chain})")
+
+
+def check_banded(setup, results):
+    """Kernel A at B=256, T=512, S=256 on real packed graphs."""
     from khg_tpu_torch.align.banded_kernel import banded_cuda, banded_plain
 
     _pipe, tables, offsets, ll, nf, T, P = banded_batch(setup, fb=False)
     B, DK, S = tables.plane_cost.shape
-    tids_k, cost_k = banded_cuda(tables, offsets, ll, nf, 0.1)
-    tids_p, cost_p = banded_plain(tables, offsets, ll, nf, 0.1)
-    torch.cuda.synchronize()
-    if not torch.equal(cost_k, cost_p):
-        raise AssertionError(
-            "kernel A: total costs not bit-equal "
-            f"(max diff {(cost_k - cost_p).abs().max().item()})"
-        )
-    if not torch.equal(tids_k, tids_p):
-        raise AssertionError("kernel A: tids differ from the plain version")
-    ms = time_ms(lambda: banded_cuda(tables, offsets, ll, nf, 0.1), reps=10)
-    plain_ms = time_ms(lambda: banded_plain(tables, offsets, ll, nf, 0.1), reps=2)
     steps = int(nf.sum())
     nbytes = (B * DK * S * 8 + B * S * 12 + B * T * P * 4 + B * 4 + DK * 4
               + B * T * 4 + B * 4)
     ops = steps * S * (2 * DK + 3)  # add + compare per plane; scale, sub, min
-    tp_ms, tp_by = bound(nbytes, ops, FP32_OPS_PER_S)
-    serial_ms, chain = serial_bound(int(nf.max()), DK, S)
-    b_ms, b_by = (serial_ms, "operations") if serial_ms > tp_ms else (tp_ms, tp_by)
-    results["banded_viterbi"] = dict(
-        name="banded_viterbi", route="cuda",
-        source="khg_tpu_torch/csrc/banded_viterbi.cu",
-        replaces="khg_tpu/align/pallas_banded.py:51",
-        max_abs_err=float((cost_k - cost_p).abs().max()), ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        throughput_bound_ms=tp_ms, serial_bound_ms=serial_ms,
-        serial_chain=chain,
-        shape=dict(B=B, T=T, S=S, DK=DK, P=P, frames=steps,
-                   max_frames=int(nf.max())),
-        tolerance="costs bit-equal, tids equal",
+    check_viterbi_kernel(
+        results, "banded_viterbi", "A", "khg_tpu_torch/csrc/banded_viterbi.cu",
+        "khg_tpu/align/pallas_banded.py:51",
+        lambda: banded_cuda(tables, offsets, ll, nf, 0.1),
+        lambda: banded_plain(tables, offsets, ll, nf, 0.1),
+        nbytes, ops, int(nf.max()), DK, S,
+        dict(B=B, T=T, S=S, DK=DK, P=P, frames=steps, max_frames=int(nf.max())),
     )
-    log(f"kernel A banded_viterbi: B={B} T={T} S={S} DK={DK}: bit-equal; "
-        f"{ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms {b_by}: "
-        f"serial {serial_ms:.4f}, throughput {tp_ms:.4f} {tp_by}; {chain})")
 
 
 def check_banded_fb(setup, results):
@@ -577,6 +614,271 @@ def check_fbank(waves_np, cfg, results):
         f"{b_ms:.4f} {b_by}; with the dense DFT {dft_ms:.4f} {dft_by})")
 
 
+def check_viterbi(setup, results):
+    """Kernel G at B=256, T=512 on the kernel A check's utterances,
+    packed without bands (incoming-arc tables, S padded to 256)."""
+    import numpy as np
+    import torch
+
+    from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain
+    from khg_tpu_torch.recipes.pipeline import EStepPipeline
+
+    _lp, tm0, _tree, graphs, _wave_lens, _cfg = setup
+    idx, nfr, T = short_utterances(setup)
+    pipe = EStepPipeline(
+        copy.deepcopy(tm0), acoustic_scale=0.1, self_loop_scale=0.1,
+        batch_size=256, states_pad_multiple=256, frames_pad_multiple=256,
+        align_backend="xla", device=DEVICE,
+    )
+    g, banded, _sp = pipe._batch_graphs(idx, pipe.pack_graphs_base(graphs))
+    if banded is not None:
+        raise AssertionError("kernel G check: batch packed banded")
+    B, S, M = g.in_src.shape
+    P = int(pipe.id2pdf.max()) + 1
+    gen = np.random.default_rng(3)
+    ll = torch.as_tensor(
+        (-40.0 + 8.0 * gen.standard_normal((B, T, P))).astype(np.float32),
+        device=DEVICE,
+    )
+    nf = torch.as_tensor(nfr[idx].astype(np.int32), device=DEVICE)
+    steps = int(nf.sum())
+    # the arc tables, init/final, the active frames' loglike rows,
+    # num_frames; tids and costs out
+    nbytes = B * S * M * 16 + B * S * 8 + steps * P * 4 + B * 4 + B * T * 4 + B * 4
+    ops = steps * S * M * 4  # add, scale, subtract, compare per arc
+    check_viterbi_kernel(
+        results, "viterbi", "G", "khg_tpu_torch/csrc/viterbi.cu",
+        "khg_tpu/align/pallas_viterbi.py:63",
+        lambda: viterbi_cuda(g, ll, nf, 0.1),
+        lambda: viterbi_plain(g, ll, nf, 0.1),
+        nbytes, ops, int(nf.max()), M, S,
+        dict(B=B, T=T, S=S, M=M, P=P, frames=steps, max_frames=int(nf.max())),
+    )
+
+
+# ------------------------------------------------------------------ phase 7
+# the triphone-bench widths (bench.py build_system / build_problem with
+# num_phones=682, dim=80, mix=32, batch=64, frames=300, words_per_utt=3)
+TRI_PHONES = 682
+TRI_DIM = 80
+TRI_MIX = 32
+TRI_GRAPHS = 16
+TRI_UTTS = 512
+TRI_FRAMES = 300
+TRI_BATCH = 64
+TRI_PASSES = 3
+
+
+def triphone_system():
+    """The triphone-bench system from the port's own modules: 682
+    single-phone words plus SIL (2,051 pdfs), a flat start on 100
+    standard-normal frames split to 32 Gaussians per pdf, 16 distinct
+    3-word training graphs spread over 512 utterances of 300
+    standard-normal 80-dim frames (as bench.py draws its features).
+    Returns (tm, am, graphs, feats); graphs[i] is the FST of utterance
+    i, one object per distinct graph."""
+    import numpy as np
+
+    from khg_tpu_torch.lang.lexicon import Lexicon, Lexiconp
+    from khg_tpu_torch.lang.topo import generate_hmm_topo
+    from khg_tpu_torch.recipes.corpus_train import compile_training_graphs
+    from khg_tpu_torch.recipes.steps import gmm_init_mono
+
+    rng = np.random.default_rng(SEED)
+    word2phones = {"<SIL>": ["SIL"]}
+    for i in range(TRI_PHONES):
+        word2phones[f"W{i}"] = [f"P{i}"]
+    lp = Lexiconp.from_lexicon(Lexicon(word2phones=word2phones)).add_lex_disambig()
+    topo = generate_hmm_topo(
+        non_sil_phones=lp.get_non_sil_phone_ids(),
+        sil_phone=lp.get_sil_phone_id(),
+    )
+    tm, tree, am = gmm_init_mono(
+        topo, [rng.standard_normal((100, TRI_DIM)).astype(np.float32)]
+    )
+    for p in range(am.num_pdfs):
+        am.get_pdf(p).split(TRI_MIX, 0.1, rng=rng)
+    words = [f"W{i}" for i in range(TRI_PHONES)]
+    seqs = set()
+    while len(seqs) < TRI_GRAPHS:
+        seqs.add(tuple(words[int(rng.integers(TRI_PHONES))] for _ in range(3)))
+    seqs = sorted(seqs)
+    distinct = compile_training_graphs(lp, tm, tree, seqs)
+    graphs = [distinct[i % TRI_GRAPHS] for i in range(TRI_UTTS)]
+    feats = [rng.standard_normal((TRI_FRAMES, TRI_DIM)).astype(np.float32)
+             for _ in range(TRI_UTTS)]
+    return tm, am, graphs, feats
+
+
+def tri_pipeline(tm, **kw):
+    from khg_tpu_torch.recipes.pipeline import EStepPipeline
+
+    return EStepPipeline(
+        copy.deepcopy(tm), acoustic_scale=0.1, self_loop_scale=0.1,
+        batch_size=TRI_BATCH, frames_pad_multiple=4, states_pad_multiple=8,
+        mix_pad_multiple=8, device=DEVICE, **kw,
+    )
+
+
+def tri_packed(pipe, graphs):
+    """pack_graphs_base of the distinct graphs, one packed object per
+    distinct FST (the pipeline caches batches by object)."""
+    packed = {}
+    out = []
+    for g in graphs:
+        if id(g) not in packed:
+            packed[id(g)] = pipe.pack_graphs_base([g])[0]
+        out.append(packed[id(g)])
+    return out
+
+
+def tri_batch(tri):
+    """The first wide batch as the path builds it: (model, tables,
+    offsets, bfeats, lens, sac, pdf_ids, frame weights, state_pdf),
+    with the alignment kernel A gives on the per-state lattice."""
+    import torch
+
+    from khg_tpu_torch.align.banded_kernel import viterbi_align_banded
+    from khg_tpu_torch.gmm.likelihoods import loglikes_per_state
+
+    tm, am, graphs, feats = tri
+    pipe = tri_pipeline(tm, align_backend="banded")
+    base = tri_packed(pipe, graphs)
+    model = pipe.pack_model_device(am)
+    idx = list(range(TRI_BATCH))
+    bfeats, lens, _bt = pipe._batch_feats(idx, feats)
+    _g, banded, _sp = pipe._batch_graphs(idx, base)
+    if banded is None:
+        raise AssertionError("phase 7: the triphone batch did not pack banded")
+    tables, offsets = banded
+    sac = loglikes_per_state(model[0], model[1], model[2], tables.state_pdf, bfeats)
+    res = viterbi_align_banded(tables, offsets, None, lens, pipe._id2pdf_t,
+                               acoustic_scale=0.1, sac=sac)
+    if bool(res.failed.any()):
+        raise AssertionError("phase 7: the triphone batch failed to align")
+    T = bfeats.shape[1]
+    fw = (torch.arange(T, device=DEVICE)[None, :] < lens[:, None]).to(torch.float32)
+    pdf_ids = pipe._id2pdf_t[res.tids.long()].to(torch.int32)
+    return model, tables, offsets, bfeats, lens, sac, pdf_ids, fw, tables.state_pdf
+
+
+def check_fold(batch, results):
+    """Kernel F at the triphone-bench widths, on the first batch's graph
+    states and its kernel-A alignment."""
+    import torch
+
+    from khg_tpu_torch.stats.accum import accumulate_am_stats_local
+    from khg_tpu_torch.stats.fold_kernel import accumulate_am_stats_fold, fold_cuda
+
+    (g, miv, iv, _w), tables, _offsets, x, _lens, _sac, pid, fw, sp = batch
+    args = (g, miv, iv, x, pid, fw, sp)
+    got = accumulate_am_stats_fold(*args)
+    again = accumulate_am_stats_fold(*args)
+    ref = accumulate_am_stats_local(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("kernel F: a rerun is not bit-identical")
+    errs = {}
+    for name, a, b in zip(("occ", "mean_acc", "var_acc"), got, ref):
+        if not torch.allclose(a, b, rtol=2e-4, atol=2e-4):
+            raise AssertionError(f"kernel F: {name} off by {(a - b).abs().max().item()}")
+        errs[name] = float((a - b).abs().max())
+    ll_rel = abs(float(got.tot_log_like - ref.tot_log_like)) / abs(float(ref.tot_log_like))
+    if ll_rel > 2e-4 or not torch.equal(got.tot_frames, ref.tot_frames):
+        raise AssertionError(f"kernel F: tot_log_like rel err {ll_rel}, frames "
+                             f"{got.tot_frames.item()} vs {ref.tot_frames.item()}")
+    ms = time_ms(lambda: accumulate_am_stats_fold(*args), reps=10)
+    kernel_ms = time_ms(lambda: fold_cuda(*args), reps=10)
+    plain_ms = time_ms(lambda: accumulate_am_stats_local(*args), reps=10)
+    P, K, D = miv.shape
+    B, T, _ = x.shape
+    S = sp.shape[1]
+    Q = 2 * D + 1
+    frames = int(((pid[:, :, None] == sp[:, None, :]).any(-1) & (fw > 0)).sum())
+    used = int(torch.unique(sp).numel())
+    # the function's bytes: the model rows of the pdfs on the graphs'
+    # states, features, ids, weights and state pdfs in; (P, K, 1+2D)
+    # stats and two scalars out
+    nbytes = used * K * Q * 4 + B * T * D * 4 + B * T * 8 + B * S * 4 + P * K * Q * 4 + 8
+    # per aligned frame: K dots of 2D (multiply-add), the logsumexp and
+    # posteriors (~6 per component), the fold (multiply-add per entry);
+    # then the scatter's adds of the (B, S) partials
+    per_frame = K * 2 * D * 2 + 6 * K + K * Q * 2
+    ops = frames * per_frame + B * S * K * Q
+    b_ms, b_by = bound(nbytes, ops, FP32_OPS_PER_S)
+    # the TPU kernel's design scores every state's K rows of every frame
+    design_ops = B * T * (S * K * 2 * D * 2 + S * K) + frames * (6 * K + K * Q * 2)
+    d_ms, d_by = bound(nbytes, design_ops, FP32_OPS_PER_S)
+    results["stats_fold"] = dict(
+        name="stats_fold", route="cuda", source="khg_tpu_torch/csrc/stats_fold.cu",
+        replaces="khg_tpu/stats/pallas_fold.py:57",
+        max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, kernel_only_ms=kernel_ms,
+        design_bound_ms=d_ms, design_bound_by=d_by, max_abs_errs=errs,
+        tot_log_like_rel_err=ll_rel,
+        shape=dict(B=B, T=T, S=S, K=K, D=D, P=P, frames=frames, used_pdfs=used),
+        tolerance="occ, moments rtol+atol 2e-4; tot_log_like rel 2e-4; "
+                  "tot_frames exact; rerun bit-identical",
+    )
+    log(f"kernel F stats_fold: B={B} T={T} S={S} K={K} D={D} P={P}, {frames} "
+        f"frames on {used} pdfs: errs {errs}, ll rel {ll_rel:.2e}, rerun "
+        f"bit-identical; {ms:.3f} ms with the scatter (kernel {kernel_ms:.3f}, "
+        f"plain {plain_ms:.3f}, bound {b_ms:.4f} {b_by}; all-states design "
+        f"{d_ms:.4f} {d_by})")
+
+
+def check_banded_sac(batch, results):
+    """Kernel A in external-acoustic mode on the first triphone batch's
+    tables and per-state lattice."""
+    from khg_tpu_torch.align.banded_kernel import banded_sac_cuda, banded_sac_plain
+
+    _model, tables, offsets, _x, lens, sac, _pid, _fw, _sp = batch
+    B, DK, S = tables.plane_cost.shape
+    T = sac.shape[1]
+    steps = int(lens.sum())
+    nbytes = (B * DK * S * 8 + B * S * 12 + steps * S * 4 + B * 4 + DK * 4
+              + B * T * 4 + B * 4)
+    check_viterbi_kernel(
+        results, "banded_viterbi_sac", "A-sac",
+        "khg_tpu_torch/csrc/banded_viterbi.cu", "khg_tpu/align/pallas_banded.py:51",
+        lambda: banded_sac_cuda(tables, offsets, sac, lens, 0.1),
+        lambda: banded_sac_plain(tables, offsets, sac, lens, 0.1),
+        nbytes, steps * S * (2 * DK + 3), int(lens.max()), DK, S,
+        dict(B=B, T=T, S=S, DK=DK, frames=steps, max_frames=int(lens.max())),
+    )
+
+
+def check_loglikes_wide(batch, results):
+    """Kernel B at the triphone widths (D=80, P=2,051, K=32) on 4,096
+    of the first batch's frames: the row width the narrow route of
+    phase 7 runs."""
+    import torch
+
+    from khg_tpu_torch.gmm.fused_loglikes import loglikes_cuda, loglikes_plain
+
+    (g, miv, iv, _w), _t, _o, x, _l, _s, _p, _f, _sp = batch
+    xs = x.reshape(-1, x.shape[-1])[:4096].contiguous()
+    got = loglikes_cuda(g, miv, iv, xs)
+    ref = loglikes_plain(g, miv, iv, xs)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not torch.isfinite(got).all() or err > 1e-4:
+        raise AssertionError(f"kernel B at D=80: max abs err {err} > 1e-4")
+    ms = time_ms(lambda: loglikes_cuda(g, miv, iv, xs), reps=5)
+    plain_ms = time_ms(lambda: loglikes_plain(g, miv, iv, xs), reps=5)
+    P, K, D = miv.shape
+    N = xs.shape[0]
+    real = int(torch.isfinite(g).sum())
+    b_ms, b_by = bound(N * D * 4 + P * K * (2 * D + 1) * 4 + N * P * 4,
+                       2 * N * real * 2 * D + 3 * N * real, FP32_OPS_PER_S)
+    results["fused_loglikes"]["d80"] = dict(
+        N=N, D=D, P=P, K=K, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by,
+    )
+    log(f"kernel B fused_loglikes at N={N} D={D} P={P} K={K}: err {err:.2e}; "
+        f"{ms:.3f} ms (plain {plain_ms:.3f}, bound {b_ms:.4f} {b_by})")
+
+
 # --------------------------------------------------------------- phase 4-5
 
 def main_path(corpus, lp, graphs, cfg):
@@ -636,13 +938,16 @@ def pallas_backend(res, graphs, feats):
     recs = {}
     launches = None
     # "xla" twice: whether two identical runs give bit-identical records
-    # (index_add_ on the card sums with atomics)
-    for run, backend in enumerate(("xla", "pallas", "xla")):
+    # (index_add_ on the card sums with atomics); then every batch
+    # through the non-banded Viterbi kernel (align_backend="xla")
+    runs = (("xla", "banded"), ("pallas", "banded"), ("xla", "banded"),
+            ("xla", "xla"))
+    for run, (backend, align) in enumerate(runs):
         pipe = EStepPipeline(
             copy.deepcopy(res.transition_model), acoustic_scale=0.1,
             self_loop_scale=0.1, batch_size=256, mix_pad_multiple=8,
             states_pad_multiple=256, frames_pad_multiple=256,
-            likelihood_backend=backend, align_backend="banded",
+            likelihood_backend=backend, align_backend=align,
             device=DEVICE,
         )
         base = pipe.pack_graphs_base(graphs)
@@ -656,11 +961,13 @@ def pallas_backend(res, graphs, feats):
         secs = time.perf_counter() - t0
         if backend == "pallas":
             launches = dict(kernels.LAUNCHES)
+        if align == "xla":
+            g_launches = dict(kernels.LAUNCHES)
         recs[run] = rec
-        log(f"backend {backend}: 2 passes in {secs:.2f} s; avg ll "
+        log(f"backend {backend}, align {align}: 2 passes in {secs:.2f} s; avg ll "
             f"{(rec[:, 0] / rec[:, 1]).round(5).tolist()}; failures "
             f"{rec[:, 4].tolist()}")
-    log(f"pallas-backend launches: {launches}")
+    log(f"pallas-backend launches: {launches}; align-xla launches: {g_launches}")
     if launches["fused_loglikes"] <= 0:
         raise AssertionError("kernel B never launched on the pallas backend")
     log(f"xla backend run twice: records bit-identical: "
@@ -673,7 +980,17 @@ def pallas_backend(res, graphs, feats):
             raise AssertionError(f"pallas vs xla records differ by {d.max()} per frame")
     if (x[:, 1] != p[:, 1]).any() or p[:, 4].any():
         raise AssertionError("pallas backend: frame counts differ or alignments failed")
-    return launches
+    if g_launches["viterbi"] <= 0 or g_launches["banded_viterbi"] != 0:
+        raise AssertionError("align_backend='xla' did not run every batch "
+                             "through kernel G")
+    x, v = recs[0], recs[3]
+    per_frame = np.abs(x[:, [0, 2]] - v[:, [0, 2]]) / x[:, 1:2]
+    log(f"banded vs non-banded Viterbi records, per frame: tot_log_like "
+        f"{per_frame[:, 0].tolist()}, like_sum {per_frame[:, 1].tolist()}")
+    if per_frame.max() > 1e-4 or (x[:, [1, 3, 4, 5]] != v[:, [1, 3, 4, 5]]).any():
+        raise AssertionError("align_backend='xla' records differ from the banded "
+                             f"ones by {per_frame.max()} per frame, or counts differ")
+    return launches, g_launches
 
 
 # ------------------------------------------------------------------ phase 6
@@ -786,6 +1103,130 @@ def soft_em(res, graphs, feats):
     return launches
 
 
+# ------------------------------------------------------------------ phase 7
+
+def fold_shape(gconsts, miv, iv, feats, pdf_ids, weights, state_pdf):
+    """(B, S, T) of a fold_cuda call."""
+    return (feats.shape[0], state_pdf.shape[1], feats.shape[1])
+
+
+def wide_em(tri):
+    """Wide hard EM at the triphone-bench widths: 3 resident passes with
+    align_backend="banded" twice (the rerun times each launch of kernels
+    A-sac and F with CUDA events), 2 passes with align_backend="xla"
+    (full-P scores a few utterances at a time, kernel G, the gather
+    branch of accumulate_am_stats), then the narrow route once.  Returns
+    the wide banded run's launch counts."""
+    import numpy as np
+    import torch
+
+    from khg_tpu_torch import kernels
+    from khg_tpu_torch.align import banded_kernel
+    from khg_tpu_torch.est.mle import MleDiagGmmOptions
+    from khg_tpu_torch.gmm import fused_loglikes
+    from khg_tpu_torch.model.transition_model import MleTransitionUpdateConfig
+    from khg_tpu_torch.recipes import pipeline as pipeline_mod
+    from khg_tpu_torch.stats import fold_kernel
+
+    tm, am, graphs, feats = tri
+    frames = sum(f.shape[0] for f in feats)
+    calls = {}
+
+    def run(backend, align="banded", passes=TRI_PASSES):
+        pipe = tri_pipeline(tm, likelihood_backend=backend, align_backend=align)
+        base = tri_packed(pipe, graphs)
+        model = pipe.pack_model_device(am)
+        t0 = time.perf_counter()
+        _m, rec = pipe.em_passes_resident(
+            model, base, feats, passes, mle_config=MleDiagGmmOptions(),
+            transition_cfg=MleTransitionUpdateConfig(),
+        )
+        secs = time.perf_counter() - t0
+        log(f"phase 7 {backend}/{align} (wide={pipe._is_wide()}): {passes} passes "
+            f"in {secs:.2f} s ({pipe.counters.wall['align']:.3f} s after packing); "
+            f"avg ll {(rec[:, 0] / rec[:, 1]).round(6).tolist()}; failures "
+            f"{rec[:, 4].tolist()}")
+        return rec, pipe.counters.wall["align"]
+
+    kernels.reset_launch_counts()
+    rec0, _w0 = run("xla")
+    launches = dict(kernels.LAUNCHES)
+    with event_timed(banded_kernel, ("banded_sac_cuda",), calls), \
+            event_timed(fold_kernel, ("fold_cuda",), calls, describe=fold_shape):
+        rec1, wall1 = run("xla")
+    kernels.reset_launch_counts()
+    # the banded kernel and G may take different arcs of equal cost (the
+    # tids, not the pdfs, differ) and the routes fold in different f32
+    # orders, so from the second pass on the models differ and near-ties
+    # in the alignment flip: the limit holds the first pass, from the
+    # same model
+    rec3, _w3 = run("xla", align="xla", passes=2)
+    xla_launches = dict(kernels.LAUNCHES)
+    # the narrow route: full-P scores of every pdf, inside chip_smoke
+    # only; each launch of kernel B timed
+    saved = pipeline_mod.EXTERNAL_AC_PDFS
+    pipeline_mod.EXTERNAL_AC_PDFS = 1 << 30
+    try:
+        kernels.reset_launch_counts()
+        with event_timed(fused_loglikes, ("loglikes_cuda",), calls,
+                         describe=lambda g, m, v, x, *rest: tuple(x.shape)):
+            rec2, wall2 = run("pallas")
+        narrow = dict(kernels.LAUNCHES)
+    finally:
+        pipeline_mod.EXTERNAL_AC_PDFS = saved
+    log(f"phase 7 launches: wide {launches}; wide, align_backend=xla "
+        f"{xla_launches}; narrow {narrow}")
+    torch.cuda.synchronize()
+    per_pass = {}
+    for fn, pairs in calls.items():
+        times = [s.elapsed_time(e) for s, e, _shape in pairs]
+        per_pass[fn] = sum(times) / TRI_PASSES
+        log(f"phase 7 rerun, {fn} per launch (ms, shape): "
+            f"{[(round(t, 4), sh[:3]) for t, (_s, _e, sh) in zip(times, pairs)]}")
+    pass_ms = wall1 / TRI_PASSES * 1e3
+    log(f"phase 7 rerun, per pass: A-sac {per_pass['banded_sac_cuda']:.3f} ms + "
+        f"F {per_pass['fold_cuda']:.3f} ms of {pass_ms:.1f} ms wall "
+        f"({(per_pass['banded_sac_cuda'] + per_pass['fold_cuda']) / pass_ms:.1%})")
+    narrow_ms = wall2 / TRI_PASSES * 1e3
+    log(f"phase 7 narrow route, per pass: B {per_pass['loglikes_cuda']:.3f} ms "
+        f"of {narrow_ms:.1f} ms wall ({per_pass['loglikes_cuda'] / narrow_ms:.1%}); "
+        f"wide {frames * TRI_PASSES / 100.0 / (wall1 or 1.0):.0f} and narrow "
+        f"{frames * TRI_PASSES / 100.0 / (wall2 or 1.0):.0f} audio-sec x passes "
+        f"per s after packing")
+    if rec0[:, 4].any() or rec2[:, 4].any() or rec3[:, 4].any():
+        raise AssertionError("phase 7: alignment failures")
+    avg = rec0[:, 0] / rec0[:, 1]
+    if not (np.diff(avg) >= 0).all():
+        raise AssertionError(f"phase 7: avg log-likelihood fell: {avg}")
+    for k in ("banded_viterbi_sac", "stats_fold"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the wide path")
+    if narrow["fused_loglikes"] <= 0 or narrow["stats_fold"] != 0:
+        raise AssertionError("phase 7: the narrow route did not score all pdfs")
+    if xla_launches["viterbi"] <= 0 or xla_launches["stats_fold"] != 0:
+        raise AssertionError("phase 7: align_backend=xla did not go through "
+                             "kernel G and the full-P fold")
+    log(f"phase 7 wide run twice: records bit-identical: "
+        f"{bool((rec0 == rec1).all())}; max abs diff {float(np.abs(rec0 - rec1).max())}")
+    if not (rec0 == rec1).all():
+        raise AssertionError("phase 7: a rerun of the wide passes is not bit-identical")
+    per_frame = np.abs(rec0[:, [0, 2]] - rec2[:, [0, 2]]) / frames
+    log(f"phase 7 wide vs narrow records, per frame: tot_log_like "
+        f"{per_frame[:, 0].tolist()}, like_sum {per_frame[:, 1].tolist()}")
+    if per_frame.max() > 1e-4 or (rec0[:, [1, 3, 4, 5]] != rec2[:, [1, 3, 4, 5]]).any():
+        raise AssertionError(f"phase 7: wide vs narrow records differ by "
+                             f"{per_frame.max()} per frame, or counts differ")
+    per_frame = np.abs(rec0[:2, [0, 2]] - rec3[:, [0, 2]]) / frames
+    log(f"phase 7 banded vs align_backend=xla records, per frame: tot_log_like "
+        f"{per_frame[:, 0].tolist()}, like_sum {per_frame[:, 1].tolist()} "
+        f"(limit on pass 1); transition objf {rec0[:2, 6].tolist()} vs "
+        f"{rec3[:, 6].tolist()}")
+    if per_frame[0].max() > 1e-4 or (rec0[:2, [1, 3, 4, 5]] != rec3[:, [1, 3, 4, 5]]).any():
+        raise AssertionError(f"phase 7: banded vs align_backend=xla records differ "
+                             f"by {per_frame.max()} per frame, or counts differ")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -847,22 +1288,37 @@ def main() -> int:
         check_banded_fb(setup, results)
         check_loglikes(am0.num_pdfs, results)
         check_fbank(waves, cfg, results)
+        check_viterbi(setup, results)
+        t0 = time.perf_counter()
+        tri = triphone_system()
+        log(f"triphone-bench system: {tri[1].num_pdfs} pdfs x {TRI_MIX} "
+            f"Gaussians, D={TRI_DIM}, {len(tri[3])} utterances in "
+            f"{time.perf_counter() - t0:.1f} s")
+        batch = tri_batch(tri)
+        check_fold(batch, results)
+        check_banded_sac(batch, results)
+        check_loglikes_wide(batch, results)
+        del batch
         if KERNELS_ONLY:
             return 1
 
         res, feats, launches = main_path(corpus, lp, graphs, cfg)
-        b_launches = pallas_backend(res, graphs, feats)
+        b_launches, g_launches = pallas_backend(res, graphs, feats)
         fb_launches = soft_em(res, graphs, feats)
+        w_launches = wide_em(tri)
 
     results["banded_viterbi"]["launches"] = launches["banded_viterbi"]
     results["fbank"]["launches"] = launches["fbank"]
     results["fused_loglikes"]["launches"] = b_launches["fused_loglikes"]
     for k in ("banded_fb_fwd", "banded_fb_bwd"):
         results[k]["launches"] = fb_launches[k]
+    results["viterbi"]["launches"] = g_launches["viterbi"]
+    for k in ("stats_fold", "banded_viterbi_sac"):
+        results[k]["launches"] = w_launches[k]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [results[k] for k in (
         "banded_viterbi", "fused_loglikes", "fbank", "banded_fb_fwd",
-        "banded_fb_bwd")]}))
+        "banded_fb_bwd", "stats_fold", "viterbi", "banded_viterbi_sac")]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

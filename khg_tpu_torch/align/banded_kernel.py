@@ -17,6 +17,13 @@ in the same order, so their costs are bit-equal and their tids equal.
 ``acoustic_cost`` and ``failed`` are plain PyTorch around the kernel, as
 they are plain XLA around the Pallas kernel in khg_tpu.
 
+External-acoustic ("sac") mode, for wide models: the caller scores
+each graph state itself (gmm.likelihoods.loglikes_per_state) and hands
+the (B, T, S) lattice over, which the DP reads in place of
+ll[b, t, state_pdf[b, s]].  The lattice goes to the same kernel and the
+same plain version as the loglikes, with an identity ``state_pdf``
+(``sac_tables``): the kernel needs no second mode.
+
 ``viterbi_align_banded`` takes the kernel for CUDA tensors and the
 plain version only for CPU tensors.
 """
@@ -24,7 +31,7 @@ plain version only for CPU tensors.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -161,8 +168,11 @@ def banded_cuda(
     loglikes: torch.Tensor,
     num_frames: torch.Tensor,
     acoustic_scale: float,
+    counter: str = "banded_viterbi",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/banded_viterbi.cu``: (tids (B, T) int32, total_cost)."""
+    """Launch ``csrc/banded_viterbi.cu``: (tids (B, T) int32, total_cost).
+    ``counter`` is the launch count it adds to (banded_sac_cuda counts
+    its launches apart)."""
     from khg_tpu_torch import kernels
 
     B, DK, S, T, P, dev = check_banded_inputs(
@@ -186,36 +196,68 @@ def banded_cuda(
         tids.data_ptr(), cost.data_ptr(), B, DK, S, T, P,
         float(acoustic_scale), kernels.stream_handle(dev),
     )
-    kernels.check("banded_viterbi", err)
+    kernels.check(counter, err)
     return tids, cost
+
+
+def sac_tables(tables: BandedTables) -> BandedTables:
+    """``tables`` with an identity state_pdf, so that a (B, T, S)
+    per-state lattice passed as the loglikes is read as ac[b, t, s]."""
+    B, S = tables.state_pdf.shape
+    ident = torch.arange(S, dtype=torch.int32, device=tables.state_pdf.device)
+    return tables._replace(state_pdf=ident.expand(B, S).contiguous())
+
+
+def banded_sac_plain(tables, offsets, sac, num_frames, acoustic_scale):
+    """Plain version of the external-acoustic mode: ``sac`` (B, T, S)."""
+    return banded_plain(sac_tables(tables), offsets, sac, num_frames,
+                        acoustic_scale)
+
+
+def banded_sac_cuda(tables, offsets, sac, num_frames, acoustic_scale):
+    """Kernel A in its external-acoustic mode: ``sac`` (B, T, S) f32,
+    counted as ``banded_viterbi_sac``."""
+    return banded_cuda(sac_tables(tables), offsets, sac, num_frames,
+                       acoustic_scale, counter="banded_viterbi_sac")
 
 
 def viterbi_align_banded(
     tables: BandedTables,
     offsets: Sequence[int],
-    loglikes: torch.Tensor,    # (B, T, P) f32
+    loglikes: Optional[torch.Tensor],  # (B, T, P) f32, or None with sac
     num_frames: torch.Tensor,  # (B,) int32
     id2pdf: torch.Tensor,      # (num_tids+1,) int32
     acoustic_scale: float = 1.0,
+    sac: Optional[torch.Tensor] = None,  # (B, T, S) per-state loglikes
 ) -> ViterbiResult:
     """Exact banded Viterbi alignment: the kernel on CUDA, the plain
     version on the CPU.  Build ``tables`` with align.banded.band_renumber
-    + pack_banded (then utils.convert.banded_to_torch)."""
-    if loglikes.device.type == "cuda":
-        tids, total_cost = banded_cuda(
-            tables, offsets, loglikes.contiguous(),
-            num_frames.to(torch.int32).contiguous(), acoustic_scale,
-        )
+    + pack_banded (then utils.convert.banded_to_torch).
+
+    ``sac`` supplies the (B, T, S) per-state UNSCALED log-likelihood
+    lattice (gmm.likelihoods.loglikes_per_state over tables.state_pdf);
+    ``loglikes`` may then be None, and ``acoustic_cost`` is zeros."""
+    dev = (sac if sac is not None else loglikes).device
+    on_card = dev.type == "cuda"
+    nf32 = num_frames.to(device=dev, dtype=torch.int32).contiguous()
+    if sac is not None:
+        run = banded_sac_cuda if on_card else banded_sac_plain
+        tids, total_cost = run(tables, offsets, sac.contiguous(), nf32,
+                               acoustic_scale)
     else:
-        tids, total_cost = banded_plain(
-            tables, offsets, loglikes, num_frames, acoustic_scale
+        run = banded_cuda if on_card else banded_plain
+        tids, total_cost = run(tables, offsets, loglikes.contiguous(), nf32,
+                               acoustic_scale)
+    nf = num_frames.to(device=dev, dtype=torch.int64)
+    if loglikes is None:
+        acoustic_cost = torch.zeros_like(total_cost)
+    else:
+        acoustic_cost = path_acoustic_cost(
+            loglikes, tids, nf, id2pdf.to(dev), acoustic_scale
         )
-    nf = num_frames.to(device=loglikes.device, dtype=torch.int64)
     return ViterbiResult(
         tids=tids,
         total_cost=total_cost,
-        acoustic_cost=path_acoustic_cost(
-            loglikes, tids, nf, id2pdf.to(loglikes.device), acoustic_scale
-        ),
+        acoustic_cost=acoustic_cost,
         failed=total_cost >= FAIL_THRESHOLD,
     )

@@ -1,5 +1,5 @@
-"""Exact batched Viterbi alignment as an eager PyTorch DP over packed
-graphs (port of khg_tpu/align/viterbi.py::viterbi_align_batch).
+"""Exact batched Viterbi alignment over packed graphs (port of
+khg_tpu/align/viterbi.py::viterbi_align_batch).
 
 Per frame t the DP updates all (state, incoming-arc) pairs at once:
 
@@ -7,10 +7,11 @@ Per frame t the DP updates all (state, incoming-arc) pairs at once:
                      - acoustic_scale * ll[b, t, in_pdf[b,s,m]]
     alpha'[b, s]   = min_m score[b, s, m];  bp[t, b, s] = first argmin_m
 
-followed by a reverse loop for the backtrace.  Both lookups are direct
-gathers: khg_tpu's one-hot selects exist only because dynamic gathers
-inside a TPU scan serialise.  This is the path for batches that do not
-fit the banded kernel (parallel arcs, or no band menu covers them).
+followed by a reverse loop for the backtrace.  ``viterbi_align_batch``
+runs the CUDA kernel csrc/viterbi.cu for CUDA tensors and its plain
+version, the eager DP, for CPU tensors (align/viterbi_kernel.py).  This
+is the path for batches that do not fit the banded kernel (parallel
+arcs, or no band menu covers them), and for align_backend="xla".
 
 "Alignment failure" means the graph cannot emit exactly T frames,
 reported via a total cost at or above FAIL_THRESHOLD.
@@ -18,11 +19,9 @@ reported via a total cost at or above FAIL_THRESHOLD.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
-
-from khg_tpu_torch.align.packed import BIG
 
 # Costs at/above this threshold mean "unreachable".
 FAIL_THRESHOLD = 1.0e29
@@ -54,55 +53,31 @@ def viterbi_align_batch(
     num_frames: torch.Tensor,    # (B,) int
     id2pdf: torch.Tensor,        # (num_tids+1,) int
     acoustic_scale: float = 1.0,
-    state_pdf: Optional[torch.Tensor] = None,  # (B, S) or None
 ) -> ViterbiResult:
-    """Exact batched Viterbi alignment of B utterances.
+    """Exact batched Viterbi alignment of B utterances: the kernel on
+    CUDA (it raises for tables too large for a block), the eager DP on
+    the CPU.  Both select each arc's acoustic score through its pdf;
+    khg_tpu's per-state gather (``state_pdf``) gives the same result on
+    every feasible path, since only padding arcs score differently and
+    BIG swamps them."""
+    # imported here: viterbi_kernel imports banded_kernel, which imports
+    # this module
+    from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain
 
-    ``state_pdf`` (from align.packed.uniform_dest_pdf) gathers the
-    acoustic lattice per state instead of per arc; padding arcs score
-    differently (BIG swamps them either way), so results are identical
-    for every feasible path."""
-    in_src = graphs.in_src.long()
-    in_cost = graphs.in_cost
-    B, S, M = in_src.shape
-    T = loglikes.shape[1]
     dev = loglikes.device
-    nf = num_frames.to(device=dev, dtype=torch.int64)
-    src_flat = in_src.reshape(B, S * M)
-    if state_pdf is not None:
-        ac_seq = torch.gather(
-            loglikes, 2, state_pdf.long()[:, None, :].expand(B, T, S)
-        )[..., None]  # (B, T, S, 1)
+    if dev.type == "cuda":
+        tids, total_cost = viterbi_cuda(
+            graphs, loglikes.contiguous(),
+            num_frames.to(device=dev, dtype=torch.int32).contiguous(),
+            acoustic_scale,
+        )
     else:
-        pdf_flat = graphs.in_pdf.long().reshape(B, 1, S * M).expand(B, T, S * M)
-        ac_seq = torch.gather(loglikes, 2, pdf_flat).reshape(B, T, S, M)
-
-    alpha = graphs.init_cost.clone()
-    bp = torch.zeros((T, B, S), dtype=torch.int64, device=dev)
-    for t in range(T):
-        ga = torch.gather(alpha, 1, src_flat).reshape(B, S, M)
-        score = ga + in_cost - acoustic_scale * ac_seq[:, t]
-        best, bp_t = torch.min(score, dim=2)  # first minimal index
-        new_alpha = torch.clamp(best, max=float(BIG))
-        active = (t < nf)[:, None]
-        alpha = torch.where(active, new_alpha, alpha)
-        bp[t] = bp_t
-
-    totals = alpha + graphs.final_cost
-    total_cost, end_state = torch.min(totals, dim=1)
-    failed = total_cost >= FAIL_THRESHOLD
-
-    in_tid = graphs.in_tid.long()
-    rows = torch.arange(B, device=dev)
-    v = end_state
-    tids = torch.zeros((B, T), dtype=torch.int32, device=dev)
-    for t in range(T - 1, -1, -1):
-        m = bp[t, rows, v]
-        active = t < nf
-        tids[:, t] = torch.where(active, in_tid[rows, v, m], 0).to(torch.int32)
-        v = torch.where(active, in_src[rows, v, m], v)
-
+        tids, total_cost = viterbi_plain(
+            graphs, loglikes, num_frames, acoustic_scale
+        )
+    nf = num_frames.to(device=dev, dtype=torch.int64)
     acoustic_cost = path_acoustic_cost(
         loglikes, tids, nf, id2pdf.to(dev), acoustic_scale
     )
-    return ViterbiResult(tids, total_cost, acoustic_cost, failed)
+    return ViterbiResult(tids, total_cost, acoustic_cost,
+                         total_cost >= FAIL_THRESHOLD)

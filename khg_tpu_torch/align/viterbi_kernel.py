@@ -1,0 +1,130 @@
+"""Exact Viterbi over incoming-arc tables: the CUDA kernel
+``csrc/viterbi.cu`` and its plain PyTorch version (the eager DP).
+
+Port of khg_tpu/align/pallas_viterbi.py::viterbi_align_batch_pallas,
+the single-kernel form of align/viterbi.py::viterbi_align_batch.  Per
+frame t the DP updates all (state, incoming-arc) pairs at once:
+
+    score[b, s, m] = (alpha[b, in_src[b,s,m]] + in_cost[b,s,m])
+                     - acoustic_scale * ll[b, t, in_pdf[b,s,m]]
+    alpha'[b, s]   = min(min_m score[b, s, m], BIG);  bp = first argmin_m
+
+followed by a first-match argmin over the end states and a backtrace.
+The plain version and the kernel perform the same f32 operations in the
+same order, so their costs are bit-equal and their tids equal.  Both
+lookups are direct gathers: khg_tpu's one-hot selects exist only
+because dynamic gathers inside a TPU scan serialise.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from khg_tpu_torch.align.banded_kernel import _SMEM_LIMIT, check_tensors
+from khg_tpu_torch.align.packed import BIG
+
+
+def _block_threads(S: int) -> int:
+    return min(1024, -(-S // 32) * 32)
+
+
+def viterbi_smem_bytes(S: int, M: int) -> int:
+    """Shared memory of one block of csrc/viterbi.cu: the arc tables
+    (source, pdf, cost), two alpha buffers and the argmin scratch."""
+    return (3 * S * M + 2 * S + 2 * _block_threads(S)) * 4
+
+
+def viterbi_kernel_fits(S: int, M: int) -> bool:
+    """Whether the kernel takes S states of M incoming arcs: int8
+    backpointers need M < 128, and a block's tables must fit."""
+    return M < 128 and viterbi_smem_bytes(S, M) <= _SMEM_LIMIT
+
+
+def viterbi_plain(
+    graphs,                      # BatchedGraphs of tensors (leading axis B)
+    loglikes: torch.Tensor,      # (B, T, P)
+    num_frames: torch.Tensor,    # (B,) int
+    acoustic_scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch DP: returns (tids (B, T) int32, total_cost (B,))."""
+    in_src = graphs.in_src.long()
+    in_cost = graphs.in_cost
+    B, S, M = in_src.shape
+    T = loglikes.shape[1]
+    dev = loglikes.device
+    nf = num_frames.to(device=dev, dtype=torch.int64)
+    src_flat = in_src.reshape(B, S * M)
+    pdf_flat = graphs.in_pdf.long().reshape(B, 1, S * M).expand(B, T, S * M)
+    ac_seq = torch.gather(loglikes, 2, pdf_flat).reshape(B, T, S, M)
+
+    alpha = graphs.init_cost.clone()
+    bp = torch.zeros((T, B, S), dtype=torch.int64, device=dev)
+    for t in range(T):
+        ga = torch.gather(alpha, 1, src_flat).reshape(B, S, M)
+        score = ga + in_cost - acoustic_scale * ac_seq[:, t]
+        best, bp_t = torch.min(score, dim=2)  # first minimal index
+        new_alpha = torch.clamp(best, max=float(BIG))
+        active = (t < nf)[:, None]
+        alpha = torch.where(active, new_alpha, alpha)
+        bp[t] = bp_t
+
+    totals = alpha + graphs.final_cost
+    total_cost, end_state = torch.min(totals, dim=1)
+
+    in_tid = graphs.in_tid.long()
+    rows = torch.arange(B, device=dev)
+    v = end_state
+    tids = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    for t in range(T - 1, -1, -1):
+        m = bp[t, rows, v]
+        active = t < nf
+        tids[:, t] = torch.where(active, in_tid[rows, v, m], 0).to(torch.int32)
+        v = torch.where(active, in_src[rows, v, m], v)
+    return tids, total_cost
+
+
+def viterbi_cuda(
+    graphs,
+    loglikes: torch.Tensor,      # (B, T, P) f32
+    num_frames: torch.Tensor,    # (B,) int32
+    acoustic_scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/viterbi.cu``: (tids (B, T) int32, total_cost (B,)).
+    Raises when the batch's shapes do not fit the kernel."""
+    from khg_tpu_torch import kernels
+
+    B, S, M = graphs.in_src.shape
+    if loglikes.dim() != 3 or loglikes.shape[0] != B:
+        raise ValueError("loglikes must be (B, T, P)")
+    T, P = loglikes.shape[1], loglikes.shape[2]
+    dev = loglikes.device
+    check_tensors("viterbi_cuda", dev, [
+        (graphs.in_src, torch.int32, (B, S, M)),
+        (graphs.in_pdf, torch.int32, (B, S, M)),
+        (graphs.in_cost, torch.float32, (B, S, M)),
+        (graphs.in_tid, torch.int32, (B, S, M)),
+        (graphs.init_cost, torch.float32, (B, S)),
+        (graphs.final_cost, torch.float32, (B, S)),
+        (loglikes, torch.float32, (B, T, P)),
+        (num_frames, torch.int32, (B,)),
+    ])
+    if not viterbi_kernel_fits(S, M):
+        raise ValueError(
+            f"viterbi_cuda: S={S} states of M={M} arcs need M < 128 and "
+            f"{viterbi_smem_bytes(S, M)} B <= {_SMEM_LIMIT} B of shared memory"
+        )
+    bp = torch.empty((B, T, S), dtype=torch.int8, device=dev)
+    tids = torch.empty((B, T), dtype=torch.int32, device=dev)
+    cost = torch.empty((B,), dtype=torch.float32, device=dev)
+    err = kernels.lib().launch_viterbi(
+        graphs.in_src.data_ptr(), graphs.in_pdf.data_ptr(),
+        graphs.in_cost.data_ptr(), graphs.in_tid.data_ptr(),
+        graphs.init_cost.data_ptr(), graphs.final_cost.data_ptr(),
+        loglikes.data_ptr(), num_frames.data_ptr(), bp.data_ptr(),
+        tids.data_ptr(), cost.data_ptr(), B, S, M, T, P,
+        float(acoustic_scale), kernels.stream_handle(dev),
+    )
+    kernels.check("viterbi", err)
+    return tids, cost

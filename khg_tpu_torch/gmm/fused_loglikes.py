@@ -23,15 +23,18 @@ import torch
 
 from khg_tpu_torch.gmm.likelihoods import expand_feats, loglikes, stack_model
 
-# the one row width compiled into csrc/loglikes.cu: 2D = 46 for the 23
-# fbank bins, the only features the port extracts; narrower rows pad up
-_WIDTH = 48
+# the row widths compiled into csrc/loglikes.cu: 2D = 46 for 23 fbank
+# bins, 78 for 39-dim MFCC + deltas, 160 for 80-dim features; wider rows
+# pad to a multiple of the last, which the kernel walks in chunks
+_WIDTHS = (48, 80, 160)
 
 
-def _padded_width(d2: int) -> int:
-    if d2 > _WIDTH:
-        raise ValueError(f"feature width 2D={d2} exceeds {_WIDTH}")
-    return _WIDTH
+def padded_width(d2: int) -> int:
+    """The kernel's row width for a feature row of 2D = ``d2`` values."""
+    for w in _WIDTHS:
+        if d2 <= w:
+            return w
+    return -(-d2 // _WIDTHS[-1]) * _WIDTHS[-1]
 
 
 def loglikes_plain(gconsts, means_invvars, inv_vars, feats, compute_dtype=None):
@@ -67,7 +70,7 @@ def loglikes_cuda(
     lead = feats.shape[:-1]
     x2 = expand_feats(feats.reshape(-1, D))
     A, g = stack_model(gconsts, means_invvars, inv_vars)
-    d2p = _padded_width(2 * D)
+    d2p = padded_width(2 * D)
     pad = d2p - 2 * D
     x2 = torch.nn.functional.pad(x2, (0, pad))
     A = torch.nn.functional.pad(A, (0, pad))

@@ -70,3 +70,42 @@ def loglikes(
         gconsts, means_invvars, inv_vars, feats, compute_dtype=compute_dtype
     )
     return torch.logsumexp(scores, dim=-1)
+
+
+def component_scores_per_state(
+    gconsts: torch.Tensor,        # (P, K)
+    means_invvars: torch.Tensor,  # (P, K, D)
+    inv_vars: torch.Tensor,       # (P, K, D)
+    state_pdf: torch.Tensor,      # (B, S) int: pdf of each graph state
+    feats: torch.Tensor,          # (B, T, D)
+) -> torch.Tensor:
+    """(B, T, S, K) f32 per-component scores of each graph STATE's pdf.
+
+    The S-factored analogue of component_scores: the model rows are
+    gathered once per (b, s) as (B, S, K, 2D) and the product with
+    [x, x²] shrinks by P/S.  Shared by per-state alignment scoring
+    (loglikes_per_state) and the local-state stats fold
+    (stats.accum.accumulate_am_stats_local)."""
+    P, K, D = means_invvars.shape
+    A, g = stack_model(gconsts, means_invvars, inv_vars)
+    spdf = state_pdf.long()
+    A_state = A.reshape(P, K, 2 * D)[spdf]           # (B, S, K, 2D)
+    g_state = g.reshape(P, K)[spdf]                  # (B, S, K)
+    x2 = expand_feats(feats.to(torch.float32))       # (B, T, 2D)
+    return torch.einsum("btd,bskd->btsk", x2, A_state) + g_state[:, None]
+
+
+def loglikes_per_state(
+    gconsts: torch.Tensor,
+    means_invvars: torch.Tensor,
+    inv_vars: torch.Tensor,
+    state_pdf: torch.Tensor,
+    feats: torch.Tensor,
+) -> torch.Tensor:
+    """(B, T, S) log-likelihoods of each graph state's pdf: the values
+    of loglikes(...)[b, t, state_pdf[b, s]] without scoring the pdfs
+    outside the graph."""
+    scores = component_scores_per_state(
+        gconsts, means_invvars, inv_vars, state_pdf, feats
+    )
+    return torch.logsumexp(scores, dim=-1)

@@ -40,6 +40,9 @@ LAUNCHES: Dict[str, int] = {
     "fbank": 0,
     "banded_fb_fwd": 0,
     "banded_fb_bwd": 0,
+    "banded_viterbi_sac": 0,
+    "stats_fold": 0,
+    "viterbi": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -63,6 +66,12 @@ _SIGNATURES = {
     # plane_cost, state_pdf, final, loglikes, nf, offsets, alphas, log_z,
     # spost, apost, B, DK, S, T, P, scale, stream
     "launch_banded_fb_bwd": [_P] * 10 + [_I] * 5 + [_F, _P],
+    # gconsts, miv, iv, feats, pdf_ids, weights, state_pdf, local, ll,
+    # frames, B, S, T, K, D, stream
+    "launch_stats_fold": [_P] * 10 + [_I] * 5 + [_P],
+    # in_src, in_pdf, in_cost, in_tid, init, final, loglikes, nf, bp,
+    # tids, total_cost, B, S, M, T, P, scale, stream
+    "launch_viterbi": [_P] * 11 + [_I] * 5 + [_F, _P],
     # in, out, iters, stream (a measurement probe, not a path's kernel)
     "launch_latency_probe": [_P, _P, _I, _P],
 }

@@ -10,10 +10,14 @@ and the device world (padded dense tensors, CUDA kernels):
      the device,
   3. batch utterances by length and pad each batch's (T, S),
   4. per batch: GMM scoring -> Viterbi (banded CUDA kernel, or the
-     eager DP for batches that do not fit a band) -> stats fold into a
-     Kahan-compensated f32 carry; soft EM runs forward-backward
-     instead (banded CUDA kernels, or the eager dense FB) and folds
-     posterior-weighted stats into the same carry,
+     non-banded CUDA kernel for batches that do not fit a band) ->
+     stats fold into a Kahan-compensated f32 carry; soft EM runs
+     forward-backward instead (banded CUDA kernels, or the eager dense
+     FB) and folds posterior-weighted stats into the same carry.
+     Wide models (more than EXTERNAL_AC_PDFS pdfs) score banded
+     batches per graph state: the banded kernel reads that lattice and
+     the stats fold kernel (stats/fold_kernel.py) rescores each frame's
+     aligned state, so no stage scores all P pdfs,
   5. per pass: dense M-step and transition update on the device; the
      host fetches one record block at the end of a multi-pass stretch.
 
@@ -47,26 +51,33 @@ from khg_tpu_torch.align.viterbi import viterbi_align_batch
 from khg_tpu_torch.fstlib.fst import VectorFst
 from khg_tpu_torch.gmm.am_gmm import AmDiagGmm
 from khg_tpu_torch.gmm.fused_loglikes import loglikes_fused
-from khg_tpu_torch.gmm.likelihoods import component_scores
+from khg_tpu_torch.gmm.likelihoods import (
+    component_scores,
+    loglikes,
+    loglikes_per_state,
+)
 from khg_tpu_torch.graph.h_builder import (
     _scaled_transition_log_prob,
     add_transition_probs,
 )
 from khg_tpu_torch.model.transition_model import TransitionModel
 from khg_tpu_torch.stats.accum import (
+    _SCORES_ALL_MAX_BYTES,
     AccumAmDiagGmm,
     accumulate_am_stats,
     accumulate_am_stats_soft,
     accumulate_transition_stats,
     segment_sum,
 )
+from khg_tpu_torch.stats.fold_kernel import accumulate_am_stats_fold
 from khg_tpu_torch.utils.convert import banded_to_torch, batched_graphs_to_torch
 from khg_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
 
-# widest pdf set scored in full: above it khg_tpu scores per graph state
-# (the "sac" path), which this package has not ported yet
+# above this many pdfs the E-step scores banded batches per graph state
+# and the banded kernel reads that (B, T, S) lattice (external-acoustic
+# mode) instead of (B, T, P) loglikes
 EXTERNAL_AC_PDFS = 512
 
 
@@ -106,19 +117,26 @@ def _kahan_add(carry, comp, x):
 
 def _carry_fold(
     gconsts, miv, iv, bfeats, tids, lens, failed, id2pdf, total_cost,
-    carry, comp, scores=None,
+    carry, comp, scores=None, state_pdf=None,
 ):
     """Fold one aligned batch's stats into the carry.  ``scores`` are
-    the batch's component scores when scoring already computed them."""
+    the batch's component scores when scoring already computed them.
+    Pass ``state_pdf`` (B, S) on wide models to fold through each
+    utterance's graph states (stats/fold_kernel.py): O(S) not O(P)."""
     T = bfeats.shape[1]
     dev = bfeats.device
     ok = ~failed
     fw = (
         (torch.arange(T, device=dev)[None, :] < lens[:, None]) & ok[:, None]
     ).to(torch.float32)
-    s = accumulate_am_stats(
-        gconsts, miv, iv, bfeats, id2pdf[tids.long()], fw, scores=scores
-    )
+    if state_pdf is not None:
+        s = accumulate_am_stats_fold(
+            gconsts, miv, iv, bfeats, id2pdf[tids.long()], fw, state_pdf
+        )
+    else:
+        s = accumulate_am_stats(
+            gconsts, miv, iv, bfeats, id2pdf[tids.long()], fw, scores=scores
+        )
     # transition counts: frame weights added per tid (tid 0 = padding)
     counts = segment_sum(fw.reshape(-1), tids.long().reshape(-1), id2pdf.shape[0])
     counts[0] = 0.0
@@ -182,11 +200,12 @@ class EStepPipeline:
         "pallas_bf16" (the kernel with bf16 operands).  The names are
         khg_tpu's, kept so configurations carry over.
 
-        ``align_backend``: "xla" (eager DP over incoming-arc tables) or
-        "banded" (the banded CUDA kernel wherever a batch fits a band
-        menu with fewer than 128 planes and no parallel arcs; the eager
-        DP otherwise).  Both are exact.  Soft EM picks the same way
-        between the banded forward-backward kernels (no parallel arcs,
+        ``align_backend``: "xla" (the Viterbi kernel over incoming-arc
+        tables, csrc/viterbi.cu) or "banded" (the banded CUDA kernel
+        wherever a batch fits a band menu with fewer than 128 planes and
+        no parallel arcs; the incoming-arc kernel otherwise).  Both are
+        exact; on the CPU their plain versions run.  Soft EM picks the
+        same way between the banded forward-backward kernels (no parallel arcs,
         tables within a block's shared memory) and the eager dense FB.
 
         ``feature_cache_budget``: bytes of padded feature batches kept
@@ -433,12 +452,26 @@ class EStepPipeline:
 
     # ------------------------------------------------------------- e-step
 
-    def _score(self, gconsts, miv, iv, bfeats):
+    def _is_wide(self) -> bool:
+        """More pdfs than are scored in full: per-state scoring."""
+        return int(self.id2pdf.max()) + 1 > EXTERNAL_AC_PDFS
+
+    def _score(self, gconsts, miv, iv, bfeats, wide=False):
         """(loglikes (B, T, P), component scores or None).  The f32
-        "xla" backend hands its component scores to the stats fold."""
+        "xla" backend hands its component scores to the stats fold,
+        except on wide models, whose (B, T, P, K) scores would be too
+        large: those score a few utterances at a time and keep only
+        the loglikes."""
         dtype = "bfloat16" if self.likelihood_backend.endswith("bf16") else None
         if self.likelihood_backend.startswith("pallas"):
             return loglikes_fused(gconsts, miv, iv, bfeats, compute_dtype=dtype), None
+        if wide:
+            P, K = gconsts.shape
+            n = max(1, _SCORES_ALL_MAX_BYTES // (bfeats.shape[1] * P * K * 4))
+            return torch.cat([
+                loglikes(gconsts, miv, iv, bfeats[i : i + n], compute_dtype=dtype)
+                for i in range(0, bfeats.shape[0], n)
+            ]), None
         scores = component_scores(gconsts, miv, iv, bfeats, compute_dtype=dtype)
         ll = torch.logsumexp(scores, dim=-1)
         return ll, (scores if dtype is None else None)
@@ -446,8 +479,28 @@ class EStepPipeline:
     def _estep_batch(self, gconsts, miv, iv, bfeats, lens, graphs, banded,
                      state_pdf, delta, carry, comp):
         """Scoring + Viterbi (with the current cost deltas) + stats fold
-        of one batch."""
-        ll, scores = self._score(gconsts, miv, iv, bfeats)
+        of one batch.  A banded batch of a wide model scores each graph
+        state in f32 whatever the likelihood backend (as khg_tpu does),
+        aligns on that lattice and folds its stats through the graph
+        states.  ``state_pdf`` is the soft step's (dense FB); the hard
+        step's Viterbi selects per arc."""
+        wide = self._is_wide()
+        if banded is not None and wide:
+            tables, offsets = banded
+            tables = tables._replace(
+                plane_cost=tables.plane_cost + delta[tables.plane_tid.long()]
+            )
+            sac = loglikes_per_state(gconsts, miv, iv, tables.state_pdf, bfeats)
+            res = viterbi_align_banded(
+                tables, offsets, None, lens, self._id2pdf_t,
+                acoustic_scale=self.acoustic_scale, sac=sac,
+            )
+            return _carry_fold(
+                gconsts, miv, iv, bfeats, res.tids, lens, res.failed,
+                self._id2pdf_t, res.total_cost, carry, comp,
+                state_pdf=tables.state_pdf,
+            )
+        ll, scores = self._score(gconsts, miv, iv, bfeats, wide)
         if banded is not None:
             tables, offsets = banded
             tables = tables._replace(
@@ -463,7 +516,7 @@ class EStepPipeline:
             )
             res = viterbi_align_batch(
                 graphs, ll, lens, self._id2pdf_t,
-                acoustic_scale=self.acoustic_scale, state_pdf=state_pdf,
+                acoustic_scale=self.acoustic_scale,
             )
         return _carry_fold(
             gconsts, miv, iv, bfeats, res.tids, lens, res.failed,
@@ -571,12 +624,12 @@ class EStepPipeline:
         transition_objf_impr, transition_count] and occ the final pass's
         (P, K) occupancies.  The host TransitionModel is synced to the
         final device state before returning; sync the GMM side with
-        apply_model_to_am."""
-        if int(self.id2pdf.max()) + 1 > EXTERNAL_AC_PDFS:
-            raise NotImplementedError(
-                f"models with more than {EXTERNAL_AC_PDFS} pdfs need "
-                "per-state scoring, which is not ported yet"
-            )
+        apply_model_to_am.
+
+        Models with more than EXTERNAL_AC_PDFS pdfs score banded batches
+        per graph state and fold their stats through the graph states;
+        their other batches score all pdfs a few utterances at a time
+        and fold with accumulate_am_stats."""
         return self._resident_passes(
             model, base_packed_graphs, feats, passes, mle_config,
             transition_cfg, fb=False, return_occ=return_occ,

@@ -10,7 +10,10 @@ the three stats tensors with a sorted segment sum over the pdf axis
 on the TPU's MXU).  ``accumulate_transition_stats`` counts aligned
 transition ids the same way.  ``accumulate_am_stats_soft`` is the
 Baum-Welch variant: every frame weighted by its pdf posteriors.
-Replaces the reference's per-frame Eigen loop
+``accumulate_am_stats_local`` is the wide-model (triphone-scale) fold:
+posteriors and moments accumulate per graph state of each utterance,
+then one segment sum scatters them to the pdf axis; on the card its
+kernel is ``stats/fold_kernel.py``.  Replaces the reference's per-frame Eigen loop
 (reference kaldi-hmm-gmm/csrc/mle-diag-gmm.cc:100-158,
 mle-am-diag-gmm.cc:41-53).
 """
@@ -28,6 +31,10 @@ from khg_tpu_torch.gmm.am_gmm import AmDiagGmm
 from khg_tpu_torch.gmm.diag_gmm import DiagGmm
 
 logger = logging.getLogger(__name__)
+
+# accumulate_am_stats: above this many BYTES of all-pdf score tensor
+# (N, P, K) the per-frame gather path is used instead of building it
+_SCORES_ALL_MAX_BYTES = 1 << 30
 
 
 class AccumDiagGmm:
@@ -255,7 +262,9 @@ def accumulate_am_stats(
     AccumulateForGmm with weight=frame_weights (1.0 normally, 0.0 for
     padding/failed frames).  Pass ``scores`` (gmm.likelihoods.
     component_scores of the same model and features) when the caller
-    already computed them for alignment scoring."""
+    already computed them for alignment scoring; without them, above
+    1 GiB of (N, P, K) scores each frame's aligned pdf rows are
+    gathered instead."""
     from khg_tpu_torch.gmm.likelihoods import component_scores
 
     P, K, D = means_invvars.shape
@@ -264,10 +273,20 @@ def accumulate_am_stats(
     x = feats.reshape(N, D)
     pid = pdf_ids.reshape(N).long()
     w = frame_weights.reshape(N).to(torch.float32)
-    if scores is None:
-        scores = component_scores(gconsts, means_invvars, inv_vars, feats)
-    rows = torch.arange(N, device=feats.device)
-    sel = scores.reshape(N, P, K)[rows, pid]           # (N, K) aligned pdf
+    if scores is None and N * P * K * 4 > _SCORES_ALL_MAX_BYTES:
+        # wide (triphone-scale) models: the (N, P, K) scores would not
+        # fit, so gather each frame's aligned pdf rows instead (N*K*D
+        # floats, far fewer than N*P*K here)
+        sel = (
+            gconsts[pid]
+            + torch.einsum("nkd,nd->nk", means_invvars[pid], x)
+            - 0.5 * torch.einsum("nkd,nd->nk", inv_vars[pid], x * x)
+        )                                              # (N, K)
+    else:
+        if scores is None:
+            scores = component_scores(gconsts, means_invvars, inv_vars, feats)
+        rows = torch.arange(N, device=feats.device)
+        sel = scores.reshape(N, P, K)[rows, pid]       # (N, K) aligned pdf
     log_like = torch.logsumexp(sel, dim=1)             # (N,)
     post = torch.softmax(sel, dim=1) * w[:, None]      # (N, K)
     occ = segment_sum(post, pid, P)                    # (P, K)
@@ -278,6 +297,71 @@ def accumulate_am_stats(
     return DenseStats(
         occ, pkx[..., :D], pkx[..., D:], tot_log_like, torch.sum(w)
     )
+
+
+def scatter_local_stats(local: torch.Tensor, state_pdf: torch.Tensor,
+                        num_pdfs: int) -> torch.Tensor:
+    """(B, S, K, 1+2D) per-(utterance, state) stats -> (P, K, 1+2D),
+    summed onto each state's pdf by ``segment_sum`` (deterministic)."""
+    B, S, K, Q = local.shape
+    out = segment_sum(local.reshape(B * S, K * Q),
+                      state_pdf.long().reshape(B * S), num_pdfs)
+    return out.reshape(num_pdfs, K, Q)
+
+
+def accumulate_am_stats_local(
+    gconsts: torch.Tensor,        # (P, K)
+    means_invvars: torch.Tensor,  # (P, K, D)
+    inv_vars: torch.Tensor,       # (P, K, D)
+    feats: torch.Tensor,          # (B, T, D)
+    pdf_ids: torch.Tensor,        # (B, T) int
+    frame_weights: torch.Tensor,  # (B, T) f32 (0 masks a frame out)
+    state_pdf: torch.Tensor,      # (B, S) int: pdf of each graph state
+) -> DenseStats:
+    """Triphone-scale stats factored through each utterance's graph
+    states (port of khg_tpu accumulate_am_stats_local).
+
+    Every aligned pdf occurs among its utterance's graph states
+    (S << P), so posteriors and moments accumulate per LOCAL state
+    first, as one batched product over the frames, and
+    ``scatter_local_stats`` adds the (B, S) partials onto the pdf axis.
+    Each frame takes the first state of its aligned pdf (states of one
+    pdf share their model rows).  A w>0 frame whose pdf is absent from
+    ``state_pdf`` drops out of every output, tot_log_like and
+    tot_frames included.  Matches accumulate_am_stats up to f32
+    summation order."""
+    from khg_tpu_torch.gmm.likelihoods import component_scores_per_state
+
+    P, K, D = means_invvars.shape
+    B, T, _ = feats.shape
+    S = state_pdf.shape[1]
+    dev = feats.device
+    # padding components carry gconst = -inf: a finite floor keeps every
+    # product finite, and exp(-1e30 - max) is exactly 0
+    scores_sk = torch.clamp(component_scores_per_state(
+        gconsts, means_invvars, inv_vars, state_pdf, feats
+    ), min=-1e30)                                              # (B, T, S, K)
+    iota = torch.arange(S, device=dev)
+    eq = state_pdf.long()[:, None, :] == pdf_ids.long()[:, :, None]
+    sidx = torch.where(eq, iota, S).min(dim=-1).values         # (B, T)
+    w = frame_weights.to(torch.float32)
+    matched = (sidx < S) & (w > 0)
+    wm = torch.where(matched, w, 0.0)
+    sel = torch.gather(
+        scores_sk, 2,
+        sidx.clamp(max=max(S - 1, 0))[:, :, None, None].expand(B, T, 1, K),
+    )[:, :, 0]                                                 # (B, T, K)
+    log_like = torch.logsumexp(sel, dim=-1)                    # (B, T)
+    post = torch.softmax(sel, dim=-1) * wm[..., None]          # (B, T, K)
+    onehot = (sidx[..., None] == iota).to(torch.float32)       # (B, T, S)
+    wsk = (onehot[..., None] * post[:, :, None, :]).reshape(B, T, S * K)
+    xw1 = torch.cat([torch.ones_like(feats[..., :1]), feats, feats * feats],
+                    dim=-1)                                    # (B, T, 1+2D)
+    local = torch.bmm(wsk.transpose(1, 2), xw1)                # (B, S*K, 1+2D)
+    out = scatter_local_stats(local.reshape(B, S, K, 1 + 2 * D), state_pdf, P)
+    tot_log_like = torch.sum(torch.where(matched, log_like * w, 0.0))
+    return DenseStats(out[..., 0], out[..., 1:1 + D], out[..., 1 + D:],
+                      tot_log_like, torch.sum(wm))
 
 
 def accumulate_am_stats_soft(

@@ -1,8 +1,8 @@
 """Viterbi alignment in the port against khg_tpu on the same graphs
 and loglikes: the banded plain version (what the CUDA kernel computes,
 operation for operation) against the Pallas banded kernel in interpret
-mode and the banded host reference, and the eager DP against the XLA
-scan."""
+mode and the banded host reference, its external-acoustic (sac) mode
+against the Pallas kernel's, and the eager DP against the XLA scan."""
 
 import numpy as np
 import pytest
@@ -12,7 +12,11 @@ from khg_tpu.align.banded import band_renumber, pack_banded, viterbi_banded_host
 from khg_tpu.align.packed import uniform_dest_pdf
 from khg_tpu.align.pallas_banded import viterbi_align_banded as j_banded
 from khg_tpu.align.viterbi import viterbi_align_batch as j_viterbi
-from khg_tpu_torch.align.banded_kernel import banded_cuda, viterbi_align_banded
+from khg_tpu_torch.align.banded_kernel import (
+    banded_cuda,
+    banded_sac_cuda,
+    viterbi_align_banded,
+)
 from khg_tpu_torch.align.viterbi import viterbi_align_batch
 from khg_tpu_torch.utils.convert import banded_to_torch, batched_graphs_to_torch
 from tests.test_align import host_viterbi, setup  # noqa: F401
@@ -81,8 +85,9 @@ def test_banded_plain_infeasible_fails(setup):  # noqa: F811
 
 @pytest.mark.parametrize("uniform", [False, True])
 def test_eager_viterbi_matches_jax(setup, uniform):  # noqa: F811
-    """The eager DP against khg_tpu's XLA scan: tids equal, costs within
-    1e-6 relative, failures equal (one utterance too short to align)."""
+    """The eager DP (per-arc select) against khg_tpu's XLA scan, with and
+    without khg_tpu's per-state gather: tids equal, costs within 1e-6
+    relative, failures equal (one utterance too short to align)."""
     lp = setup[0]
     words = _words(lp, ["YES"], ["NO", "YES", "NO"], ["YES", "NO"])
     lens = [15, 40, 3]
@@ -93,7 +98,6 @@ def test_eager_viterbi_matches_jax(setup, uniform):  # noqa: F811
     res = viterbi_align_batch(
         batched_graphs_to_torch(arrays, "cpu"), torch.as_tensor(ll),
         torch.as_tensor(nf), torch.as_tensor(id2pdf), acoustic_scale=0.5,
-        state_pdf=None if sp is None else torch.as_tensor(sp),
     )
     ref = j_viterbi(arrays, ll, nf, id2pdf, acoustic_scale=0.5, state_pdf=sp)
     np.testing.assert_array_equal(res.failed.numpy(), np.asarray(ref.failed))
@@ -124,9 +128,79 @@ def test_banded_and_eager_agree(setup):  # noqa: F811
                                rtol=1e-6)
 
 
+def _fused_sac_costs(tables, offsets, sac, nf, scale):
+    """banded_plain's total costs with ``best - scale * ac`` rounded
+    once (a fused multiply-add, emulated in f64)."""
+    pc = tables.plane_cost
+    alpha = tables.init_cost.clone()
+    nft = torch.as_tensor(nf).long()
+    ac = torch.as_tensor(sac).double()
+    sc = float(np.float32(scale))
+    for t in range(int(nft.max())):
+        rolled = torch.stack([torch.roll(alpha, int(d), dims=1) for d in offsets], 1)
+        best = torch.min(rolled + pc, dim=1).values
+        new = torch.clamp((best.double() - sc * ac[:, t]).float(), max=1e30)
+        alpha = torch.where((t < nft)[:, None], new, alpha)
+    return torch.min(alpha + tables.final_cost, dim=1).values.numpy()
+
+
+@pytest.mark.parametrize("scale", [0.5, 0.1])
+def test_banded_sac_matches_pallas_interpret(setup, scale):  # noqa: F811
+    """External-acoustic mode: a random (B, T, S) per-state lattice in
+    place of the loglikes.  Tids equal to the Pallas kernel in interpret
+    mode, acoustic cost zeros in both, costs bit-equal where
+    scale * ac is exact in f32 (0.5).  At 0.1 XLA's CPU compiler
+    contracts the Pallas kernel's ``best - scale * ac`` into one fused
+    multiply-add when ac is read straight from the lattice (it does not
+    in loglike mode, where ac comes out of a product), so the costs are
+    held to one ulp there, and to the bit against the same recursion
+    computed with one rounding.  A lattice gathered from the loglikes
+    reproduces the loglike mode bit for bit."""
+    lp = setup[0]
+    words = _words(lp, ["YES"], ["NO", "YES"], ["YES", "NO"])
+    lens = [13, 22, 30]
+    _g, _a, banded, offsets, ll, nf, id2pdf = _banded(setup, lens, words)
+    B, T = ll.shape[:2]
+    S = banded.state_pdf.shape[1]
+    rng = np.random.default_rng(12)
+    sac = (-20.0 + 5.0 * rng.standard_normal((B, T, S))).astype(np.float32)
+    tables = banded_to_torch(banded, "cpu")
+    res = viterbi_align_banded(
+        tables, offsets, None, torch.as_tensor(nf), torch.as_tensor(id2pdf),
+        acoustic_scale=scale, sac=torch.as_tensor(sac),
+    )
+    ref = j_banded(
+        banded, offsets, None, nf, id2pdf, acoustic_scale=scale,
+        block_b=2, time_chunk=16, lane=8, interpret=True, sac=sac,
+    )
+    np.testing.assert_array_equal(res.tids.numpy(), np.asarray(ref.tids))
+    if scale == 0.5:
+        np.testing.assert_array_equal(res.total_cost.numpy(),
+                                      np.asarray(ref.total_cost))
+    else:
+        np.testing.assert_allclose(res.total_cost.numpy(),
+                                   np.asarray(ref.total_cost), rtol=2.4e-7)
+        np.testing.assert_array_equal(
+            _fused_sac_costs(tables, offsets, sac, nf, scale),
+            np.asarray(ref.total_cost))
+    assert not res.acoustic_cost.any() and not np.asarray(ref.acoustic_cost).any()
+    gathered = np.take_along_axis(ll, banded.state_pdf[:, None, :].astype(np.int64)
+                                  .repeat(T, 1), axis=2)
+    a = viterbi_align_banded(tables, offsets, None, torch.as_tensor(nf),
+                             torch.as_tensor(id2pdf), acoustic_scale=scale,
+                             sac=torch.as_tensor(gathered))
+    b = viterbi_align_banded(tables, offsets, torch.as_tensor(ll),
+                             torch.as_tensor(nf), torch.as_tensor(id2pdf),
+                             acoustic_scale=scale)
+    assert torch.equal(a.total_cost, b.total_cost) and torch.equal(a.tids, b.tids)
+
+
 def test_banded_cuda_wrapper_rejects_cpu_tensors(setup):  # noqa: F811
     lp = setup[0]
     _g, _a, banded, offsets, ll, nf, _ = _banded(setup, [12], _words(lp, ["YES"]))
     with pytest.raises(ValueError):
         banded_cuda(banded_to_torch(banded, "cpu"), offsets,
                     torch.as_tensor(ll), torch.as_tensor(nf), 0.5)
+    with pytest.raises(ValueError):
+        banded_sac_cuda(banded_to_torch(banded, "cpu"), offsets,
+                        torch.as_tensor(ll), torch.as_tensor(nf), 0.5)

@@ -266,14 +266,27 @@ def test_accumulate_from_alignments_matches_jax(system):
 
 
 def test_wide_models_not_ported(system, monkeypatch):
-    """More pdfs than the full-scoring limit needs the per-state path,
-    which the port does not have yet: it says so."""
+    """More pdfs than the full-scoring limit took a path the port did
+    not have; it has it now (tests/test_torch_wide_em.py holds it to
+    khg_tpu).  The wide route (per-state scoring, the banded kernel on
+    that lattice, the local-state fold) and the narrow route (full-P
+    scoring and fold) give the same records within 1e-5 relative, with
+    equal frame and utterance counts and 0 failures."""
     corpus, result = system
-    monkeypatch.setattr(port_pipeline, "EXTERNAL_AC_PDFS", 1)
-    pipe = EStepPipeline(port_copy(result.transition_model), device="cpu")
-    am = port_copy(result.am)
-    with pytest.raises(NotImplementedError):
-        pipe.em_passes_resident(
+
+    def passes():
+        pipe = EStepPipeline(port_copy(result.transition_model), device="cpu",
+                             acoustic_scale=1.0, self_loop_scale=0.1,
+                             batch_size=2, align_backend="banded")
+        am = port_copy(result.am)
+        return pipe.em_passes_resident(
             pipe.pack_model_device(am),
-            pipe.pack_graphs_base(port_copy(result.graphs)), corpus.feats, 1,
-        )
+            pipe.pack_graphs_base(port_copy(result.graphs)), corpus.feats, 2,
+        )[1]
+
+    narrow = passes()
+    monkeypatch.setattr(port_pipeline, "EXTERNAL_AC_PDFS", 1)
+    wide = passes()
+    assert not wide[:, 4].any()
+    np.testing.assert_array_equal(wide[:, [1, 3, 4, 5]], narrow[:, [1, 3, 4, 5]])
+    np.testing.assert_allclose(wide, narrow, rtol=1e-5, atol=1e-3)

@@ -1,9 +1,12 @@
 """The hand-written CUDA kernels against their plain PyTorch versions,
 on the card, at small and ragged shapes the main path does not reach
 (pdf and row tiles cut short, padding components, bf16 operands,
-states not a multiple of a warp, utterances of zero frames or too
-short to align, a last frame chunk cut short, banded forward-backward
-with up to 128 planes or 400 states, utterances that all fail).
+feature rows of every compiled width and wider, states not a multiple
+of a warp, utterances of zero frames or too short to align, a last
+frame chunk cut short, banded forward-backward with up to 128 planes or
+400 states, utterances that all fail, the stats fold with pdfs shared
+by several states or absent from them, the non-banded Viterbi with 1 to
+8 incoming arcs per state).
 
 These tests need an NVIDIA card and skip without one.  They import
 only the port, so they run where khg_tpu and jax are not installed;
@@ -23,14 +26,26 @@ from khg_tpu_torch.align.banded_fb import (
     fb_kernel_fits,
     forward_backward_banded,
 )
-from khg_tpu_torch.align.banded_kernel import BandedTables, banded_cuda, banded_plain
+from khg_tpu_torch.align.banded_kernel import (
+    BandedTables,
+    banded_cuda,
+    banded_plain,
+    banded_sac_cuda,
+    banded_sac_plain,
+)
 from khg_tpu_torch.align.forward_backward import (
     NEG_BIG,
     FBResult,
     gamma_from_state_posteriors,
     tid_counts_from_posteriors,
 )
-from khg_tpu_torch.align.packed import pack_graph, pack_graph_batch, uniform_dest_pdf
+from khg_tpu_torch.align.packed import (
+    BatchedGraphs,
+    pack_graph,
+    pack_graph_batch,
+    uniform_dest_pdf,
+)
+from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain
 from khg_tpu_torch.features.fbank import FbankConfig, num_frames
 from khg_tpu_torch.features.fbank_kernel import _padded_wave, fbank_cuda, fbank_plain
 from khg_tpu_torch.gmm.fused_loglikes import loglikes_cuda, loglikes_plain
@@ -39,6 +54,8 @@ from khg_tpu_torch.lang.topo import generate_hmm_topo
 from khg_tpu_torch.recipes.audiomnist import DIGITS, digits_lexicon
 from khg_tpu_torch.recipes.corpus_train import compile_training_graphs
 from khg_tpu_torch.recipes.steps import gmm_init_mono
+from khg_tpu_torch.stats.accum import accumulate_am_stats_local
+from khg_tpu_torch.stats.fold_kernel import accumulate_am_stats_fold, fold_cuda
 from khg_tpu_torch.utils.convert import banded_to_torch
 
 pytestmark = pytest.mark.cuda
@@ -70,7 +87,9 @@ def _model(rng, P, K, D, device):
 
 
 @pytest.mark.parametrize("P,K,D,N", [(13, 5, 23, 301), (9, 8, 13, 128),
-                                     (3, 2, 20, 17)])
+                                     (3, 2, 20, 17), (11, 32, 39, 200),
+                                     (7, 32, 80, 150), (5, 8, 100, 70)],
+                         ids=["D23", "D13", "D20", "D39", "D80", "D100-chunked"])
 @pytest.mark.parametrize("dtype,tol", [(None, 1e-4), ("bfloat16", 5e-2)])
 def test_loglikes_kernel(cuda_device, P, K, D, N, dtype, tol):
     rng = np.random.default_rng(P * 100 + K)
@@ -120,6 +139,127 @@ def test_banded_kernel(cuda_device, states_pad):
         assert torch.equal(ck, cp)
         assert torch.equal(tk, tp)
         assert bool(ck[3] >= 1e29) and bool(ck[:3].lt(1e29).all())
+
+
+def test_banded_sac_kernel(cuda_device):
+    """External-acoustic mode: a random per-state lattice in place of
+    the loglikes; costs bit-equal and tids equal to the plain version,
+    counted apart from the loglike mode."""
+    from khg_tpu_torch import kernels
+
+    seqs = [[DIGITS[d] for d in s] for s in ([3], [2, 8], [4, 5, 6], [7], [1, 9])]
+    _tm, packed = _digit_graphs(seqs)
+    arrays = pack_graph_batch(packed, states_pad_to=8, indeg_pad_to=2)
+    ren, _ = band_renumber(arrays)
+    banded, offsets = pack_banded(ren, uniform_dest_pdf(ren))
+    tables = banded_to_torch(banded, cuda_device)
+    B, S = tables.state_pdf.shape
+    rng = np.random.default_rng(9)
+    sac = torch.as_tensor((-25 + 6 * rng.standard_normal((B, 140, S))).astype(np.float32),
+                          device=cuda_device)
+    nf = torch.as_tensor(np.array([60, 90, 140, 2, 0], np.int32), device=cuda_device)
+    before = kernels.LAUNCHES["banded_viterbi_sac"]
+    tk, ck = banded_sac_cuda(tables, offsets, sac, nf, 0.1)
+    tp, cp = banded_sac_plain(tables, offsets, sac, nf, 0.1)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["banded_viterbi_sac"] == before + 1
+    assert torch.equal(ck, cp) and torch.equal(tk, tp)
+    assert bool(ck[3] >= 1e29) and bool(ck[:3].lt(1e29).all())
+
+
+def _fold_problem(rng, B, T, D, P, K, S, pad, device):
+    """Random model (``pad`` padding components per pdf: gconst -inf),
+    features, state pdfs with repeats, and an alignment drawn from each
+    utterance's states, with fractional and zero weights, frames of a
+    pdf absent from the states, and utterance 1 of zero frames."""
+    g = rng.standard_normal((P, K)).astype(np.float32) - 5.0
+    miv = rng.standard_normal((P, K, D)).astype(np.float32)
+    iv = rng.uniform(0.5, 2.0, (P, K, D)).astype(np.float32)
+    if pad:
+        g[:, K - pad:] = -np.inf
+        miv[:, K - pad:] = 0.0
+    feats = rng.standard_normal((B, T, D)).astype(np.float32)
+    sp = rng.integers(0, P // 2, (B, S)).astype(np.int32)
+    sp[:, S // 2] = sp[:, 0]  # a pdf on two states
+    pid = np.take_along_axis(sp, rng.integers(0, S, (B, T)), axis=1)
+    pid[0, :5] = P - 1  # absent from every state list
+    w = rng.uniform(0.0, 1.0, (B, T)).astype(np.float32)
+    w[w < 0.2] = 0.0
+    w[0, :5] = 1.0
+    w[1] = 0.0
+    return [torch.as_tensor(a, device=device)
+            for a in (g, miv, iv, feats, pid.astype(np.int32), w, sp)]
+
+
+@pytest.mark.parametrize("B,T,D,P,K,S,pad", [
+    (3, 70, 13, 40, 8, 13, 0), (4, 50, 16, 61, 32, 21, 3), (2, 33, 80, 30, 32, 9, 5),
+], ids=["K8-S13", "K32-S21-pad3", "D80-K32-S9"])
+def test_stats_fold_kernel(cuda_device, B, T, D, P, K, S, pad):
+    """The fold kernel + scatter against accumulate_am_stats_local on the
+    card: occ, moments and tot_log_like within 2e-4, tot_frames within
+    1e-6; padding components exactly 0; a rerun bit-identical; states
+    that repeat a pdf hold zeros."""
+    rng = np.random.default_rng(B * 100 + K)
+    args = _fold_problem(rng, B, T, D, P, K, S, pad, cuda_device)
+    got = accumulate_am_stats_fold(*args)
+    ref = accumulate_am_stats_local(*args)
+    again = accumulate_am_stats_fold(*args)
+    local, _ll, frames = fold_cuda(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.allclose(a, b, rtol=2e-4, atol=2e-4)
+    assert torch.allclose(got.tot_log_like, ref.tot_log_like, rtol=2e-4)
+    assert torch.allclose(got.tot_frames, ref.tot_frames, rtol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if pad:
+        assert float(got.occ[:, K - pad:].abs().max()) == 0.0
+    assert float(local[:, S // 2].abs().max()) == 0.0
+    assert float(frames[1].abs().max()) == 0.0 and float(local[1].abs().max()) == 0.0
+
+
+def _random_arcs(rng, B, S, M, P, device):
+    """Random incoming-arc tables: state 0 initial, sources anywhere
+    (earlier states more often), a share of padding slots at BIG,
+    finals on the last states; utterance 2 has no final state."""
+    big = np.float32(1e30)
+    s = np.arange(S)[None, :, None]
+    src = np.where(rng.uniform(size=(B, S, M)) < 0.7,
+                   np.maximum(s - rng.integers(0, 3, (B, S, M)), 0),
+                   rng.integers(0, S, (B, S, M)))
+    real = rng.uniform(size=(B, S, M)) < 0.8
+    real[:, :, 0] = True
+    cost = np.where(real, rng.uniform(0.1, 3.0, (B, S, M)), big).astype(np.float32)
+    tid = np.where(real, rng.integers(1, 90, (B, S, M)), 0).astype(np.int32)
+    pdf = rng.integers(0, P, (B, S, M)).astype(np.int32)
+    init = np.full((B, S), big, np.float32)
+    init[:, 0] = 0.0
+    final = np.full((B, S), big, np.float32)
+    final[:, -3:] = rng.uniform(0.0, 1.0, (B, 3))
+    final[2] = big
+    zeros = np.zeros((B, S, M), np.int32)
+    return BatchedGraphs(*[torch.as_tensor(x, device=device) for x in (
+        src.astype(np.int32), tid, pdf, cost, zeros, zeros, zeros,
+        np.zeros((B, S, M), np.float32), init, final)])
+
+
+@pytest.mark.parametrize("S,M", [(37, 1), (100, 3), (300, 8), (45, 5)])
+def test_viterbi_kernel(cuda_device, S, M):
+    """Costs bit-equal and tids equal to the eager DP, with a zero-frame
+    utterance (3) and one with no final state (2, failed)."""
+    rng = np.random.default_rng(S * 10 + M)
+    B, T, P = 5, 80, 29
+    graphs = _random_arcs(rng, B, S, M, P, cuda_device)
+    ll = torch.as_tensor((-20 + 5 * rng.standard_normal((B, T, P))).astype(np.float32),
+                         device=cuda_device)
+    nf = torch.as_tensor(np.array([80, 57, 40, 0, 13], np.int32), device=cuda_device)
+    for scale in (0.1, 1.0):
+        tk, ck = viterbi_cuda(graphs, ll, nf, scale)
+        tp, cp = viterbi_plain(graphs, ll, nf, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(ck, cp)
+        assert torch.equal(tk, tp)
+        assert bool(ck[2] >= 1e29)
+        assert not bool(tk[3].any())
 
 
 def _fb_pair(tables, offsets, ll, nf, scale, num_tids):
