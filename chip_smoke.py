@@ -149,7 +149,8 @@ _LATENCIES = {}
 def step_latencies(iters: int = 100_000):
     """Dependent-step latencies on this card in ns, timed once by
     csrc/latency_probe.cu: the frame exchange step, one fp32 operation,
-    a shared-memory read, a precise expf and a precise logf (+ add)."""
+    a shared-memory read, a precise expf, a precise logf (+ add), and a
+    global load from L2 and from device memory."""
     import torch
 
     from khg_tpu_torch import kernels
@@ -167,8 +168,31 @@ def step_latencies(iters: int = 100_000):
             raise RuntimeError(f"latency probe failed to launch: error {err}")
     torch.cuda.synchronize()
     v = [x / iters for x in out.tolist()]
-    _LATENCIES.update(step=v[0], op=v[1] / 2, read=v[2], exp=v[4], log=v[5])
+    _LATENCIES.update(step=v[0], op=v[1] / 2, read=v[2], exp=v[4], log=v[5],
+                      l2=chase_ns(1 << 15), hbm=chase_ns(1 << 23))
     return _LATENCIES
+
+
+def chase_ns(lines: int, iters: int = 20_000) -> float:
+    """ns per dependent global load (csrc/latency_probe.cu's chase) over
+    a random cycle through ``lines`` 128-byte lines: 4 MB stays in L2,
+    1 GB is spread over device memory."""
+    import torch
+
+    from khg_tpu_torch import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    heads = torch.randperm(lines, device="cuda", generator=gen) * 32
+    nxt = torch.zeros(lines * 32, dtype=torch.int32, device="cuda")
+    nxt[heads] = torch.roll(heads, -1).to(torch.int32)
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    stream = kernels.stream_handle(nxt.device)
+    for n in (iters // 10, iters):  # the first call warms up
+        err = kernels.lib().launch_latency_chase(nxt.data_ptr(), out.data_ptr(), n, stream)
+        if err != 0:
+            raise RuntimeError(f"latency chase failed to launch: error {err}")
+    torch.cuda.synchronize()
+    return out[0].item() / iters
 
 
 def serial_bound(max_frames: int, DK: int, S: int):
@@ -345,18 +369,22 @@ def check_viterbi_kernel(results, name, label, source, replaces, kernel, plain,
     tp_ms, tp_by = bound(nbytes, ops, FP32_OPS_PER_S)
     serial_ms, chain = serial_bound(max_frames, width, S)
     b_ms, b_by = (serial_ms, "operations") if serial_ms > tp_ms else (tp_ms, tp_by)
+    us_frame = ms / max_frames * 1e3
+    serial_us_frame = serial_ms / max_frames * 1e3
     results[name] = dict(
         name=name, route="cuda", source=source, replaces=replaces,
         max_abs_err=float((cost_k - cost_p).abs().max()), ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         throughput_bound_ms=tp_ms, serial_bound_ms=serial_ms,
+        us_per_frame=us_frame, serial_bound_us_per_frame=serial_us_frame,
         serial_chain=chain, shape=shape,
         tolerance="costs bit-equal, tids equal",
     )
     dims = " ".join(f"{k}={v}" for k, v in shape.items())
-    log(f"kernel {label} {name}: {dims}: bit-equal; {ms:.3f} ms (plain "
-        f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms {b_by}: serial "
-        f"{serial_ms:.4f}, throughput {tp_ms:.4f} {tp_by}; {chain})")
+    log(f"kernel {label} {name}: {dims}: bit-equal; {ms:.3f} ms, "
+        f"{us_frame:.3f} us per frame of the longest utterance (serial bound "
+        f"{serial_us_frame:.3f}) (plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+        f"{b_by}: serial {serial_ms:.4f}, throughput {tp_ms:.4f} {tp_by}; {chain})")
 
 
 def check_banded(setup, results):
@@ -377,6 +405,9 @@ def check_banded(setup, results):
         nbytes, ops, int(nf.max()), DK, S,
         dict(B=B, T=T, S=S, DK=DK, P=P, frames=steps, max_frames=int(nf.max())),
     )
+    lat = step_latencies()
+    log("dependent-step latencies (ns): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in lat.items()))
 
 
 def check_banded_fb(setup, results):
@@ -462,12 +493,15 @@ def check_banded_fb(setup, results):
                       else (dtp_ms, dtp_by))
         out[name] = (f"{b_ms:.4f} ms: serial {serial_ms:.4f}, throughput "
                      f"{tp_ms:.4f} {tp_by}; design {d_ms:.4f} {d_by}")
+        out[name] += (f"; {ms / mf * 1e3:.3f} us per frame of the longest "
+                      f"utterance (serial bound {serial_ms / mf * 1e3:.3f})")
         results[name] = dict(
             name=name, route="cuda", source="khg_tpu_torch/csrc/banded_fb.cu",
             replaces=f"khg_tpu/align/pallas_banded_fb.py:{src_line}",
             max_abs_err=float((lz_k - lz_p).abs().max()) if log_z else gam_err,
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None, throughput_bound_ms=tp_ms, serial_bound_ms=serial_ms,
+            us_per_frame=ms / mf * 1e3, serial_bound_us_per_frame=serial_ms / mf * 1e3,
             design_bound_ms=d_ms, design_bound_by=d_by, serial_chain=chain,
             shape=dict(B=B, T=T, S=S, DK=DK, P=P, frames=steps, max_frames=mf),
             tolerance=("log Z rtol 1e-5, failures equal" if log_z else
@@ -868,15 +902,22 @@ def check_loglikes_wide(batch, results):
     plain_ms = time_ms(lambda: loglikes_plain(g, miv, iv, xs), reps=5)
     P, K, D = miv.shape
     N = xs.shape[0]
+    A = torch.cat([miv, -0.5 * iv], -1).reshape(P * K, 2 * D)
+    x2 = torch.cat([xs, xs * xs], -1)
+    gflat = g.reshape(P * K)
+    library_ms = time_ms(
+        lambda: torch.logsumexp((x2 @ A.T + gflat).reshape(N, P, K), -1), reps=5,
+    )
     real = int(torch.isfinite(g).sum())
     b_ms, b_by = bound(N * D * 4 + P * K * (2 * D + 1) * 4 + N * P * 4,
                        2 * N * real * 2 * D + 3 * N * real, FP32_OPS_PER_S)
     results["fused_loglikes"]["d80"] = dict(
         N=N, D=D, P=P, K=K, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
     )
     log(f"kernel B fused_loglikes at N={N} D={D} P={P} K={K}: err {err:.2e}; "
-        f"{ms:.3f} ms (plain {plain_ms:.3f}, bound {b_ms:.4f} {b_by})")
+        f"{ms:.3f} ms (plain {plain_ms:.3f}, matmul+logsumexp {library_ms:.3f}, "
+        f"bound {b_ms:.4f} {b_by})")
 
 
 # --------------------------------------------------------------- phase 4-5

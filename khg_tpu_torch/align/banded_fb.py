@@ -61,20 +61,37 @@ from khg_tpu_torch.align.forward_backward import (
 
 # one thread per state
 _MAX_STATES = 1024
+# csrc/banded_fb.cu's compiled backward path: plane counts, at most
+# this many states, frames in its alpha ring
+_BWD_FAST_DK = (16, 20)
+_BWD_FAST_MAX_S = 512
+_BWD_RING = 4
+
+
+def _generic_smem_bytes(DK: int, S: int) -> int:
+    """The generic backward block's tables: the negated plane costs,
+    double-buffered alpha_t and beta' + acoustic, the offsets (the
+    forward block needs less)."""
+    return (DK * S + 4 * S) * 4 + DK * 4
 
 
 def fb_kernel_smem_bytes(DK: int, S: int) -> int:
-    """Shared memory of the larger block of csrc/banded_fb.cu, the
-    backward kernel's (its ``smem_bytes(DK, S, 2)``): the negated plane
-    costs, double-buffered alpha_t and beta' + acoustic, the offsets."""
-    return (DK * S + 4 * S) * 4 + DK * 4
+    """Shared memory that csrc/banded_fb.cu's backward launcher
+    requests for one block.  Compiled path: the alpha ring (rows stored
+    twice) and beta' + acoustic (stored twice).  Generic path: its
+    tables, plus the plane-posterior sums where they fit."""
+    if DK in _BWD_FAST_DK and S <= _BWD_FAST_MAX_S:
+        return 4 * S * (2 * _BWD_RING + 4)
+    base = _generic_smem_bytes(DK, S)
+    with_sums = base + DK * S * 4
+    return with_sums if with_sums <= _SMEM_LIMIT else base
 
 
 def fb_kernel_fits(DK: int, S: int) -> bool:
     """Whether the kernels take DK planes over S states: one thread per
     state, and a block's tables must fit its shared memory.  (No plane
     limit: FB keeps no int8 backpointers.)"""
-    return S <= _MAX_STATES and fb_kernel_smem_bytes(DK, S) <= _SMEM_LIMIT
+    return S <= _MAX_STATES and _generic_smem_bytes(DK, S) <= _SMEM_LIMIT
 
 
 # ------------------------------------------------------------- plain version
@@ -197,7 +214,7 @@ def _check_inputs(name, tables, offsets, loglikes, num_frames):
     if not fb_kernel_fits(DK, S):
         raise ValueError(
             f"{name}: DK={DK} planes over S={S} states need S <= "
-            f"{_MAX_STATES} and {fb_kernel_smem_bytes(DK, S)} B <= "
+            f"{_MAX_STATES} and {_generic_smem_bytes(DK, S)} B <= "
             f"{_SMEM_LIMIT} B of shared memory"
         )
     return B, DK, S, T, P, dev

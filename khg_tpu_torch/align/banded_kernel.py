@@ -44,13 +44,33 @@ from khg_tpu_torch.align.viterbi import (
 
 # shared memory a block may use on Hopper (bytes)
 _SMEM_LIMIT = 232448
+# csrc/banded_viterbi.cu: plane counts compiled, at most FAST_MAX_S
+# states (one per thread), frames per backpointer chunk
+_FAST_DK = (16, 20, 32)
+_FAST_MAX_S = 512
+_CHUNK = 32
+
+
+def _padded_states(S: int) -> int:
+    """Backpointer row of the kernel's scratch: S bytes rounded up to 16."""
+    return -(-S // 16) * 16
+
+
+def _generic_smem_bytes(DK: int, S: int) -> int:
+    nt = min(1024, -(-S // 32) * 32)
+    return DK * S * 4 + 2 * S * 4 + DK * 4 + nt * 8
 
 
 def kernel_smem_bytes(DK: int, S: int) -> int:
-    """Shared memory of one block of csrc/banded_viterbi.cu: the plane
+    """Shared memory that csrc/banded_viterbi.cu requests for one block.
+    Compiled path: two alpha buffers of _FAST_MAX_S floats, the staged
+    backpointers (2 chunks of padded rows), the offsets, the
+    backtrace's path and the argmin scratch.  Generic path: the plane
     costs, two alpha buffers, the offsets and the argmin scratch."""
-    nt = min(1024, -(-S // 32) * 32)
-    return DK * S * 4 + 2 * S * 4 + DK * 4 + nt * 8
+    if DK in _FAST_DK and S <= _FAST_MAX_S:
+        return (2 * _FAST_MAX_S * 4 + 2 * _CHUNK * _padded_states(S)
+                + DK * 4 + 4 * _CHUNK * 4 + 64 * 4)
+    return _generic_smem_bytes(DK, S)
 
 
 def kernel_fits(DK: int, S: int) -> bool:
@@ -185,7 +205,7 @@ def banded_cuda(
             "of shared memory"
         )
     offs = _offsets_on(tuple(int(d) for d in offsets), str(dev))
-    bp = torch.empty((B, T, S), dtype=torch.int8, device=dev)
+    bp = torch.empty((B, T, _padded_states(S)), dtype=torch.int8, device=dev)
     tids = torch.empty((B, T), dtype=torch.int32, device=dev)
     cost = torch.empty((B,), dtype=torch.float32, device=dev)
     err = kernels.lib().launch_banded_viterbi(

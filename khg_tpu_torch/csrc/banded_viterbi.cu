@@ -10,33 +10,230 @@
 //   alpha'   = min(best - scale * ll[b, t, pdf(s)], BIG)
 //
 // followed by a first-match argmin over the final costs and a
-// backtrace that emits transition ids.
+// backtrace that emits transition ids.  The external-acoustic (sac)
+// mode is the same kernel on a (B, T, S) lattice with an identity
+// state_pdf.
 //
 // What bounds it on the H100: the frame recursion is serial (frame t+1
 // needs every alpha of frame t), so an utterance's time is nf frames of
 // a dependent plane sweep plus an nf-step pointer chase; the bytes
-// (plane tables, loglikes, backpointers) are small next to that.
-// Design: one thread block per utterance, threads over states.  The
-// plane costs and offsets live in shared memory for the whole
-// utterance, alpha is double-buffered in shared memory (one barrier
-// per frame), the acoustic term is a direct gather ll[b, t, pdf(s)]
-// (the TPU's exact one-hot GEMM select is unnecessary here), and the
-// int8 backpointers go to a global (B, T, S) scratch that the
-// single-thread backtrace reads back.  Frames at or past nf are not
-// run at all: the TPU kernel runs them and keeps alpha, which is the
-// same result.
+// (plane tables, loglikes, backpointers) are small next to that.  With
+// two utterances per SM, a frame's instructions across the SM's 16
+// warps are the limit, so nothing that is fixed for the utterance (a
+// plane's offset, cost or wrapped source index) is re-read per frame.
+//
+// Compiled path (DK = 16, 20 or 32 planes, S <= 512 states): one block
+// per utterance, one thread per state.
+// - Each thread holds its DK plane costs and source indices
+//   (s - off[p]) mod S in registers for the whole utterance.  A frame is
+//   DK shared reads and adds and a first-match min (strict `<` in plane
+//   order; a min tree measured slower).
+// - alpha is double-buffered at fixed shared offsets and the frame loop
+//   is unrolled by two, so each read is a register plus an immediate;
+//   one barrier per frame.
+// - The acoustic term ll[b, t, pdf(s)] (a lattice row in sac mode) is
+//   loaded two frames ahead into registers, so no global latency lies
+//   on the frame chain (a cp.async ring in shared memory cost a third
+//   of the frame loop, tools/kernel_split.py).
+// - Backpointers are staged in shared memory per chunk of CH frames and
+//   written out with 16-byte stores (rows padded to Sp bytes, S rounded
+//   up to 16); the last two chunks never leave shared memory.
+// - The final argmin is a shuffle tree that breaks ties to the lowest
+//   state.  In the backtrace thread 0 chases through the staged chunks
+//   (a shared read of the backpointer, then of its offset, per frame)
+//   while the other warps load the next-earlier chunk back and write
+//   the previous chunk's tids.
+// Generic path (any other DK < 128, or S > 512): plane costs and
+// offsets in shared memory, a loop over states, the acoustic term
+// gathered in the frame, backpointers in global memory and a
+// single-thread backtrace over them.  Frames at or past nf are not run
+// at all: the TPU kernel runs them and keeps alpha, which is the same
+// result.
 //
 // Bitwise parity with the plain version: the add, the scale product
 // and the subtraction use __fadd_rn/__fmul_rn/__fsub_rn so nvcc cannot
 // contract them into an FMA.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "banded_common.cuh"
+
 #include <math.h>
 
 #define KHG_BIG 1.0e30f
 
-__global__ void banded_viterbi_kernel(
+namespace {
+
+constexpr int FAST_S = khg::FAST_MAX_S;
+constexpr int CH = 32;  // frames per backpointer chunk
+
+__host__ __device__ int padded_states(int S) { return (S + 15) / 16 * 16; }
+
+// Dynamic shared memory of a compiled-path block: alpha [2][FAST_S] f32
+// at fixed offsets, the staged backpointers [2 * CH][Sp] i8, the
+// offsets [DK] i32, the chase's path [2][2][CH] i32 and the argmin
+// scratch [2][32].  align/banded_kernel.py::kernel_smem_bytes mirrors it.
+size_t fast_smem_bytes(int DK, int S) {
+    return (size_t)2 * FAST_S * 4 + (size_t)2 * CH * padded_states(S)
+           + (size_t)DK * 4 + 4 * CH * 4 + 64 * 4;
+}
+
+// ... and of a generic block: the plane costs, two alpha buffers, the
+// offsets and the argmin scratch
+size_t generic_smem_bytes(int DK, int S, int nt) {
+    return (size_t)DK * S * 4 + 2 * (size_t)S * 4 + (size_t)DK * 4 + (size_t)nt * 8;
+}
+
+// first-match min over the planes: (best, smallest plane attaining it)
+template <int DK>
+__device__ __forceinline__ int min_plane(const float* cur, const float (&cost)[DK],
+                                         const int (&src)[DK], float& best) {
+    best = INFINITY;
+    int arg = 0;
+#pragma unroll
+    for (int p = 0; p < DK; ++p) {
+        const float c = __fadd_rn(cur[src[p]], cost[p]);
+        if (c < best) {  // strict: the first plane attaining the min
+            best = c;
+            arg = p;
+        }
+    }
+    return arg;
+}
+
+template <int DK>
+__global__ void __launch_bounds__(FAST_S) banded_viterbi_fast(
+    const float* __restrict__ plane_cost,    // (B, DK, S)
+    const int32_t* __restrict__ plane_tid,   // (B, DK, S)
+    const int32_t* __restrict__ state_pdf,   // (B, S)
+    const float* __restrict__ init_cost,     // (B, S)
+    const float* __restrict__ final_cost,    // (B, S)
+    const float* __restrict__ loglikes,      // (B, T, P)
+    const int32_t* __restrict__ num_frames,  // (B,)
+    const int32_t* __restrict__ offsets,     // (DK,)
+    int8_t* __restrict__ bp,                 // (B, T, Sp) scratch
+    int32_t* __restrict__ tids,              // (B, T) out
+    float* __restrict__ total_cost,          // (B,) out
+    int S, int T, int P, float scale)
+{
+    extern __shared__ __align__(16) unsigned char smem_fast[];
+    const int Sp = padded_states(S);
+    float* alpha0 = reinterpret_cast<float*>(smem_fast);      // [FAST_S]
+    float* alpha1 = alpha0 + FAST_S;                           // [FAST_S]
+    int8_t* stage = reinterpret_cast<int8_t*>(alpha1 + FAST_S);  // [2 * CH][Sp]
+    int* offs = reinterpret_cast<int*>(stage + 2 * CH * Sp);   // [DK]
+    int* path = offs + DK;                                     // [2][2][CH]
+    float* red_v = reinterpret_cast<float*>(path + 4 * CH);    // [32]
+    int* red_i = reinterpret_cast<int*>(red_v + 32);           // [32]
+
+    const int b = blockIdx.x;
+    const int tx = threadIdx.x;
+    const int nt = blockDim.x;
+    const bool live = tx < S;
+    const int s = live ? tx : 0;
+    int nf = num_frames[b];
+    if (nf > T) nf = T;
+    if (nf < 0) nf = 0;
+
+    float cost[DK];
+    int src[DK];
+#pragma unroll
+    for (int p = 0; p < DK; ++p) {
+        int o = offsets[p] % S;
+        if (o < 0) o += S;  // shift normalised into [0, S)
+        if (tx == 0) offs[p] = o;
+        const int sr = s - o;
+        src[p] = sr < 0 ? sr + S : sr;
+        cost[p] = plane_cost[((size_t)b * DK + p) * S + s];
+    }
+    const float fin = final_cost[(size_t)b * S + s];
+    const float* llb = loglikes + (size_t)b * T * P + state_pdf[(size_t)b * S + s];
+    if (live) alpha0[s] = init_cost[(size_t)b * S + s];
+    // the acoustic terms of frames 0 and 1; each frame's register then
+    // takes the frame two on
+    float ac0 = 0.f, ac1 = 0.f;
+    if (live && nf > 0) ac0 = llb[0];
+    if (live && nf > 1) ac1 = llb[P];
+    __syncthreads();
+
+    const int K = (nf + CH - 1) / CH;  // backpointer chunks
+    int8_t* gbp = bp + (size_t)b * T * Sp;
+    auto step = [&](int t, const float* cur, float* nxt, float& acr) {
+        const float ac = acr;
+        if (live && t + 2 < nf) acr = llb[(size_t)(t + 2) * P];
+        float best;
+        const int arg = min_plane<DK>(cur, cost, src, best);
+        if (live) {
+            nxt[s] = fminf(__fsub_rn(best, __fmul_rn(scale, ac)), KHG_BIG);
+            stage[(t & (2 * CH - 1)) * Sp + s] = (int8_t)arg;
+        }
+        __syncthreads();
+        // a finished chunk goes out unless it is one of the last two
+        const int k = t / CH;
+        if (t % CH == CH - 1 && k < K - 2) {
+            const uint4* from = reinterpret_cast<const uint4*>(stage + (k & 1) * CH * Sp);
+            uint4* to = reinterpret_cast<uint4*>(gbp + (size_t)k * CH * Sp);
+            for (int i = tx; i < CH * Sp / 16; i += nt) to[i] = from[i];
+        }
+    };
+    int t = 0;
+    for (; t + 1 < nf; t += 2) {
+        step(t, alpha0, alpha1, ac0);
+        step(t + 1, alpha1, alpha0, ac1);
+    }
+    if (t < nf) step(t, alpha0, alpha1, ac0);
+    const float* last = (nf & 1) ? alpha1 : alpha0;
+
+    // first-match argmin of alpha + final over s
+    float bv = INFINITY;
+    int bi = S;
+    if (live) {
+        const float tot = __fadd_rn(last[s], fin);
+        if (tot < bv) {
+            bv = tot;
+            bi = s;
+        }
+    }
+    khg::block_argmin(bv, bi, red_v, red_i);
+    int32_t* tb = tids + (size_t)b * T;
+    for (int i = nf + tx; i < T; i += nt) tb[i] = 0;
+    if (tx == 0) total_cost[b] = bv;
+
+    // backtrace, chunk by chunk from the last: path[k & 1] holds chunk
+    // k's states and planes
+    const int32_t* ptb = plane_tid + (size_t)b * DK * S;
+    auto write_tids = [&](int k, int from, int by) {
+        const int lo = k * CH;
+        const int n = min(nf - lo, CH);
+        const int* pk = path + (k & 1) * 2 * CH;
+        for (int i = from; i < n; i += by) tb[lo + i] = ptb[(size_t)pk[CH + i] * S + pk[i]];
+    };
+    const int h0 = nt > 32 ? 32 : 1;  // the first thread that does not chase
+    int v = bi;
+    for (int k = K - 1; k >= 0; --k) {
+        if (tx == 0) {
+            const int lo = k * CH;
+            int* pk = path + (k & 1) * 2 * CH;
+            for (int tt = min(nf, lo + CH) - 1; tt >= lo; --tt) {
+                const int p = stage[(tt & (2 * CH - 1)) * Sp + v];
+                pk[tt - lo] = v;
+                pk[CH + tt - lo] = p;
+                v -= offs[p];
+                if (v < 0) v += S;
+            }
+        } else if (tx >= h0) {
+            if (k + 1 < K) write_tids(k + 1, tx - h0, nt - h0);
+            // chunk k - 1 into the half chunk k + 1 held, unless resident
+            if (k >= 1 && k - 1 < K - 2) {
+                const uint4* from = reinterpret_cast<const uint4*>(gbp + (size_t)(k - 1) * CH * Sp);
+                uint4* to = reinterpret_cast<uint4*>(stage + ((k - 1) & 1) * CH * Sp);
+                for (int i = tx - h0; i < CH * Sp / 16; i += nt - h0) to[i] = from[i];
+            }
+        }
+        __syncthreads();
+    }
+    if (K > 0) write_tids(0, tx, nt);
+}
+
+__global__ void banded_viterbi_generic(
     const float* __restrict__ plane_cost,    // (B, DK, S)
     const int32_t* __restrict__ plane_tid,   // (B, DK, S)
     const int32_t* __restrict__ state_pdf,   // (B, S)
@@ -120,14 +317,7 @@ __global__ void banded_viterbi_kernel(
     if (tx != 0) return;
     float bv = red_v[0];
     int bi = red_i[0];
-    for (int i = 1; i < nt; ++i) {
-        const float v = red_v[i];
-        const int ii = red_i[i];
-        if (v < bv || (v == bv && ii < bi)) {
-            bv = v;
-            bi = ii;
-        }
-    }
+    for (int i = 1; i < nt; ++i) khg::take_min(bv, bi, red_v[i], red_i[i]);
     total_cost[b] = bv;
     int v = bi;
     const int32_t* ptb = plane_tid + (size_t)b * DK * S;
@@ -139,6 +329,31 @@ __global__ void banded_viterbi_kernel(
     }
 }
 
+template <int DK>
+int launch_fast(const void* plane_cost, const void* plane_tid, const void* state_pdf,
+                const void* init_cost, const void* final_cost, const void* loglikes,
+                const void* num_frames, const void* offsets, void* bp, void* tids,
+                void* total_cost, int B, int S, int T, int P, float scale,
+                cudaStream_t stream)
+{
+    const int nt = ((S + 31) / 32) * 32;
+    const size_t smem = fast_smem_bytes(DK, S);
+    cudaError_t err = cudaFuncSetAttribute(
+        banded_viterbi_fast<DK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (B == 0) return 0;
+    banded_viterbi_fast<DK><<<B, nt, smem, stream>>>(
+        (const float*)plane_cost, (const int32_t*)plane_tid,
+        (const int32_t*)state_pdf, (const float*)init_cost,
+        (const float*)final_cost, (const float*)loglikes,
+        (const int32_t*)num_frames, (const int32_t*)offsets, (int8_t*)bp,
+        (int32_t*)tids, (float*)total_cost, S, T, P, scale);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bp: a (B, T, Sp) int8 scratch, Sp = S rounded up to 16
 extern "C" int launch_banded_viterbi(
     const void* plane_cost, const void* plane_tid, const void* state_pdf,
     const void* init_cost, const void* final_cost, const void* loglikes,
@@ -146,16 +361,29 @@ extern "C" int launch_banded_viterbi(
     void* total_cost, int B, int DK, int S, int T, int P, float scale,
     void* stream)
 {
+    cudaStream_t st = (cudaStream_t)stream;
+#define KHG_FAST(N)                                                            \
+    return launch_fast<N>(plane_cost, plane_tid, state_pdf, init_cost,         \
+                          final_cost, loglikes, num_frames, offsets, bp, tids, \
+                          total_cost, B, S, T, P, scale, st)
+    if (S <= FAST_S) {
+        switch (DK) {
+            case 16: KHG_FAST(16);
+            case 20: KHG_FAST(20);
+            case 32: KHG_FAST(32);
+            default: break;
+        }
+    }
+#undef KHG_FAST
     int nt = ((S + 31) / 32) * 32;
     if (nt > 1024) nt = 1024;
-    const size_t smem = (size_t)DK * S * 4 + 2 * (size_t)S * 4
-                        + (size_t)DK * 4 + (size_t)nt * 8;
+    const size_t smem = generic_smem_bytes(DK, S, nt);
     cudaError_t err = cudaFuncSetAttribute(
-        banded_viterbi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        banded_viterbi_generic, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     if (B == 0) return 0;
-    banded_viterbi_kernel<<<B, nt, smem, (cudaStream_t)stream>>>(
+    banded_viterbi_generic<<<B, nt, smem, st>>>(
         (const float*)plane_cost, (const int32_t*)plane_tid,
         (const int32_t*)state_pdf, (const float*)init_cost,
         (const float*)final_cost, (const float*)loglikes,

@@ -17,6 +17,12 @@
 //   out[5]: `iters` dependent precise logf calls in one thread.
 //
 // out[3] keeps the results live.  All times are in nanoseconds.
+//
+// A second probe, latency_chase_kernel, times a chain of dependent
+// global loads (one thread, j = next[j], loads that bypass L1) over a
+// table the caller lays out: a small one that stays in the 50 MB L2, or
+// a large one spread over device memory.  Its time per load says how
+// many frames ahead the kernels must prefetch their per-frame rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,6 +85,19 @@ __global__ void __launch_bounds__(NT) latency_probe_kernel(
     }
 }
 
+__global__ void latency_chase_kernel(
+    const int* __restrict__ next,  // a cycle of indices into itself
+    long long* __restrict__ out,   // (2,): ns for `iters` loads, last index
+    int iters)
+{
+    int j = 0;
+    const long long t0 = global_ns(0);
+    for (int i = 0; i < iters; ++i) j = __ldcg(next + j);
+    const long long t1 = global_ns(j);
+    out[0] = t1 - t0;
+    out[1] = j;
+}
+
 }  // namespace
 
 extern "C" int launch_latency_probe(const void* in, void* out, int iters,
@@ -86,5 +105,13 @@ extern "C" int launch_latency_probe(const void* in, void* out, int iters,
 {
     latency_probe_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(
         (const float*)in, (long long*)out, iters);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int launch_latency_chase(const void* next, void* out, int iters,
+                                    void* stream)
+{
+    latency_chase_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+        (const int*)next, (long long*)out, iters);
     return (int)cudaGetLastError();
 }

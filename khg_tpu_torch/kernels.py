@@ -74,6 +74,8 @@ _SIGNATURES = {
     "launch_viterbi": [_P] * 11 + [_I] * 5 + [_F, _P],
     # in, out, iters, stream (a measurement probe, not a path's kernel)
     "launch_latency_probe": [_P, _P, _I, _P],
+    # next, out, iters, stream (a dependent global-load chain)
+    "launch_latency_chase": [_P, _P, _I, _P],
 }
 
 

@@ -3,10 +3,12 @@ on the card, at small and ragged shapes the main path does not reach
 (pdf and row tiles cut short, padding components, bf16 operands,
 feature rows of every compiled width and wider, states not a multiple
 of a warp, utterances of zero frames or too short to align, a last
-frame chunk cut short, banded forward-backward with up to 128 planes or
-400 states, utterances that all fail, the stats fold with pdfs shared
-by several states or absent from them, the non-banded Viterbi with 1 to
-8 incoming arcs per state).
+frame chunk cut short, the banded kernels' compiled plane counts and
+their generic paths up to 127 planes (Viterbi) or 128 planes and 1,024
+states (forward-backward), tied candidates, utterance lengths on the
+edges of their prefetch rings and backpointer chunks, utterances that
+all fail, the stats fold with pdfs shared by several states or absent
+from them, the non-banded Viterbi with 1 to 8 incoming arcs per state).
 
 These tests need an NVIDIA card and skip without one.  They import
 only the port, so they run where khg_tpu and jax are not installed;
@@ -165,6 +167,68 @@ def test_banded_sac_kernel(cuda_device):
     assert kernels.LAUNCHES["banded_viterbi_sac"] == before + 1
     assert torch.equal(ck, cp) and torch.equal(tk, tp)
     assert bool(ck[3] >= 1e29) and bool(ck[:3].lt(1e29).all())
+
+
+# utterance lengths at the kernels' edges: none, one frame, either side
+# of E's 4-frame alpha ring, of A's frame pairs and 2-frame acoustic
+# prefetch, and of A's backpointer chunks (32 frames; the last two
+# chunks stay in shared memory), and T
+_EDGE_T = 130
+_EDGE_FRAMES = (0, 1, 3, 4, 5, 7, 8, 9, 31, 32, 33, 63, 64, 65, 95, 96, 97, _EDGE_T)
+
+
+def _band_offsets(DK):
+    lo = min(4, DK // 2)
+    return tuple(range(-lo, DK - lo))
+
+
+def _tie_tables(rng, B, S, offsets, device):
+    """Random plane tables whose costs take three values (plus BIG for
+    the planes with no arc, ~half the cells), so that equal candidates
+    are common; state 0 initial, a few final states."""
+    DK = len(offsets)
+    big = np.float32(1e30)
+    real = rng.uniform(size=(B, DK, S)) < 0.5
+    real[:, 0] = True
+    cost = np.where(real, rng.choice([0.5, 1.0, 1.5], (B, DK, S)), big).astype(np.float32)
+    tid = np.where(real, rng.integers(1, 200, (B, DK, S)), 0).astype(np.int32)
+    init = np.full((B, S), big, np.float32)
+    init[:, 0] = 0.0
+    final = np.full((B, S), big, np.float32)
+    final[:, rng.integers(0, S, 5)] = rng.choice([0.0, 0.5], (B, 5))
+    return BandedTables(*[torch.as_tensor(x, device=device) for x in (
+        cost, tid, rng.integers(0, 23, (B, S)).astype(np.int32), init, final)])
+
+
+@pytest.mark.parametrize("mode", ["loglikes", "sac"])
+@pytest.mark.parametrize("DK,S", [
+    (16, 64), (20, 256), (32, 512), (20, 37), (32, 100), (16, 1),
+    (20, 513), (1, 300), (127, 37), (5, 1100), (20, 1500),
+], ids=["c16-S64", "c20-S256", "c32-S512", "c20-S37", "c32-S100", "c16-S1",
+        "g20-S513", "g1-S300", "g127-S37", "g5-S1100", "g20-S1500"])
+def test_banded_kernel_random(cuda_device, DK, S, mode):
+    """Kernel A against its plain version on random tables with ties and
+    planes without arcs, over the compiled plane counts (c) and the
+    generic kernel (g: other DK, S above 512 and above 1,024 threads),
+    states not a multiple of a warp, both modes, and utterance lengths
+    at the kernel's edges: costs bit-equal, tids equal."""
+    rng = np.random.default_rng(DK * 10_000 + S)
+    offsets = _band_offsets(DK)
+    B = len(_EDGE_FRAMES)
+    tables = _tie_tables(rng, B, S, offsets, cuda_device)
+    nf = torch.as_tensor(np.array(_EDGE_FRAMES, np.int32), device=cuda_device)
+    width = S if mode == "sac" else 23
+    ll = torch.as_tensor(rng.integers(-6, 1, (B, _EDGE_T, width)).astype(np.float32),
+                         device=cuda_device)
+    run, plain = ((banded_sac_cuda, banded_sac_plain) if mode == "sac"
+                  else (banded_cuda, banded_plain))
+    for scale in (1.0, 0.1):
+        tk, ck = run(tables, offsets, ll, nf, scale)
+        tp, cp = plain(tables, offsets, ll, nf, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(ck, cp)
+        assert torch.equal(tk, tp)
+    assert not bool(tk[0].any())
 
 
 def _fold_problem(rng, B, T, D, P, K, S, pad, device):
@@ -343,11 +407,17 @@ def _random_banded(rng, B, S, offsets, P, device, density=0.4):
     ])
 
 
-@pytest.mark.parametrize("DK,S", [(20, 37), (64, 300), (20, 400), (128, 200)],
-                         ids=["planes-20", "planes-64", "states-400", "planes-128"])
+@pytest.mark.parametrize("DK,S", [
+    (20, 37), (64, 300), (20, 400), (128, 200), (16, 64), (16, 200), (20, 256),
+], ids=["planes-20", "planes-64", "states-400", "planes-128", "c16-S64", "c16-S200",
+        "c20-S256"])
 def test_banded_fb_kernels_random(cuda_device, DK, S):
     """Random tables, from the main path's plane count to 128 planes
-    and 400 states (a block of 13 warps)."""
+    and 400 states (a block of 13 warps): the compiled backward path (c:
+    16 and 20 planes) and the generic one, with its plane-posterior sums
+    in shared memory (up to 64 planes here) or in global memory (128).
+    Close to the plain version in gamma and tid counts, and bit-equal in
+    log Z and the state and plane posteriors."""
     rng = np.random.default_rng(DK * 1000 + S)
     offsets = tuple(range(-4, DK - 4))
     B, T, P = 6, 90, 23
@@ -360,6 +430,36 @@ def test_banded_fb_kernels_random(cuda_device, DK, S):
     k, p = _fb_pair(tables, offsets, ll, nf, 0.3, 60)
     assert not bool(p.failed[[0, 1, 2, 3, 5]].any())
     _assert_fb_close(k, p, ok=~p.failed)
+    for a, b in zip(banded_fb_cuda(tables, offsets, ll, nf, 0.3),
+                    banded_fb_plain(tables, offsets, ll, nf, 0.3)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("DK,S", [
+    (16, 40), (20, 256), (16, 512), (20, 512), (20, 513), (32, 256), (16, 1024),
+    (128, 400),
+], ids=["c16-S40", "c20-S256", "c16-S512", "c20-S512", "g20-S513", "g32-S256",
+        "g16-S1024", "g128-S400"])
+def test_banded_fb_kernels_edge_frames(cuda_device, DK, S):
+    """Utterance lengths at the backward kernel's edges (none, one
+    frame, either side of its 4-frame prefetch ring, exactly T), on the
+    compiled path (c: up to its 512 states) and the generic one (g: up
+    to 1,024 states, plane sums in shared or, at 128 planes, in global
+    memory): bit-equal to the plain versions in log Z, spost and apost,
+    failed utterances included."""
+    rng = np.random.default_rng(DK * 100 + S)
+    offsets = tuple(range(-4, DK - 4))
+    B = len(_EDGE_FRAMES)
+    tables = _random_banded(rng, B, S, offsets, 23, cuda_device)
+    ll = torch.as_tensor((-20 + 4 * rng.standard_normal((B, _EDGE_T, 23))).astype(np.float32),
+                         device=cuda_device)
+    nf = torch.as_tensor(np.array(_EDGE_FRAMES, np.int32), device=cuda_device)
+    got = banded_fb_cuda(tables, offsets, ll, nf, 0.3)
+    ref = banded_fb_plain(tables, offsets, ll, nf, 0.3)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert float(got[1][0].abs().max()) == 0.0 and float(got[2][0].abs().max()) == 0.0
 
 
 def test_banded_fb_kernels_all_failed(cuda_device):

@@ -1,0 +1,293 @@
+#!/usr/bin/env python3
+"""Split the card time of the banded Viterbi kernel (A) and of the
+banded forward-backward backward kernel (E) into their parts.
+
+    python3 tools/kernel_split.py [--src DIR] [--design parent|compiled] [--out FILE]
+
+DIR holds the ``banded_viterbi.cu`` and ``banded_fb.cu`` to split
+(default khg_tpu_torch/csrc; for the first port's kernels unpack the
+parent of their redesign with ``git archive`` and pass its
+``khg_tpu_torch/csrc`` with ``--design parent``).  Each variant is
+one of those files with parts cut out by a text patch (a patch that
+does not apply is an error).  The variants are built with nvcc for
+sm_90a into ``build/split/`` and timed with CUDA events on
+chip_smoke.py's kernel-check batches (the 256 shortest of its 1,024
+synthetic utterances, B=256, T=512, S=256, DK=20), in turns: every
+variant in order, then in reverse.  The parts are differences of
+variants:
+
+--design parent (the first port's kernels):
+A: frames = the frame loop alone; of it, the acoustic gather = frames
+   less frames with a constant acoustic term; argmin = frames and
+   argmin less frames; backtrace = whole less frames and argmin.
+E: each of the alpha load, the acoustic load and the read-modify-write
+   of the plane posteriors in global memory = whole less whole without
+   it; plane loops = the kernel with all three cut out.
+--design compiled (the default: the compiled paths of the redesign,
+   timed also on chip_smoke.py's first triphone batch in sac mode):
+A: frames, argmin and backtrace as above; of the frames, the acoustic
+   loads and the backpointer stores (with the argmin index they need)
+   each = frames less frames without it.
+E: each of the posterior expfs, the beta sum and the alpha-row copies
+   = whole less whole without it.
+
+Prints one JSON object (and writes it to FILE, default
+chiprun_out/kernel_split.json).  Needs one NVIDIA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+# {design: {variant: [(old, new), ...]}}: the parent's kernels (PR 3's
+# design) and the compiled paths of the redesign
+_A_FRAMES_ONLY = ("    // first-match argmin of alpha + final over s",
+                  "    if (nf >= 0) return;\n    // first-match argmin of alpha + final over s")
+_A_NO_LL = ("const float ac = llt[spdf[s]];", "const float ac = (float)(t & 1);")
+_E_NO_APOST = ("*cell = __fadd_rn(*cell, p);", "(void)cell;")
+_E_NO_ALPHA = ("al[s] = ab[(size_t)t * S + s];", "al[s] = (float)(t & 1);")
+_E_NO_LL = ("bplus = __fadd_rn(beta, __fmul_rn(scale, llb[(size_t)t * P + pdf]));",
+            "bplus = __fadd_rn(beta, __fmul_rn(scale, (float)(t & 1)));")
+_AC_FRAMES_ONLY = ("    const float* last = (nf & 1) ? alpha1 : alpha0;",
+                   "    if (nf >= 0) return;\n    const float* last = (nf & 1) ? alpha1 : alpha0;")
+_AC_NO_LL = ("        if (live && t + 2 < nf) acr = llb[(size_t)(t + 2) * P];\n", "")
+VARIANTS = {
+    "parent": {
+        "A": {
+            "whole": [],
+            "frames_argmin": [("for (int t = nf - 1; t >= 0; --t) {\n        const int p = bpb",
+                               "for (int t = -1; t >= 0; --t) {\n        const int p = bpb")],
+            "frames": [_A_FRAMES_ONLY],
+            "frames_no_ll": [_A_FRAMES_ONLY, _A_NO_LL],
+        },
+        "E": {
+            "whole": [],
+            "no_apost_rmw": [_E_NO_APOST],
+            "no_alpha_load": [_E_NO_ALPHA],
+            "no_ll_load": [_E_NO_LL],
+            "plane_loops": [_E_NO_APOST, _E_NO_ALPHA, _E_NO_LL],
+        },
+    },
+    "compiled": {
+        "A": {
+            "whole": [],
+            "frames_argmin": [("    for (int k = K - 1; k >= 0; --k) {", "    for (int k = -1; k >= 0; --k) {"),
+                              ("    if (K > 0) write_tids(0, tx, nt);", "")],
+            "frames": [_AC_FRAMES_ONLY],
+            "frames_no_ll": [_AC_FRAMES_ONLY, _AC_NO_LL],
+            "frames_no_bp": [_AC_FRAMES_ONLY, ("stage[(t & (2 * CH - 1)) * Sp + s] = (int8_t)arg;",
+                                               "(void)arg;")],
+        },
+        "E": {
+            "whole": [],
+            "no_posterior_exp": [("if (__any_sync(0xffffffffu, !(xm < EXP_ZERO))) {", "if (xm > 1.f) {")],
+            "no_beta_sum": [("if (__any_sync(0xffffffffu, m > KHG_HALF_NEG_BIG)) {", "if (m > 1e38f) {")],
+            "no_alpha_copies": [("        if (t >= 0) {\n            float* a = aring",
+                                 "        if (t >= nf) {\n            float* a = aring")],
+        },
+    },
+}
+
+
+def build_variants(src: Path, out_dir: Path, variants, tag: str):
+    """Patch ``src`` per variant, compile each into a shared library in
+    parallel; returns {variant: loaded CDLL}."""
+    from khg_tpu_torch import kernels
+
+    text = src.read_text()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, patches in variants.items():
+        body = text
+        for old, new in patches:
+            if body.count(old) != 1:
+                raise RuntimeError(f"{src.name}: patch for {name} does not apply: {old!r}")
+            body = body.replace(old, new)
+        cu = out_dir / f"{tag}_{name}.cu"
+        cu.write_text(body)
+        jobs[name] = (cu, out_dir / f"{tag}_{name}.so")
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+
+    def nvcc(job):
+        cu, so = job
+        proc = subprocess.run([kernels._nvcc(), *flags, "-I", str(src.parent), "-shared",
+                               "-o", str(so), str(cu)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {cu.name}:\n{proc.stdout}{proc.stderr}")
+        return so
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        sos = dict(zip(jobs, pool.map(nvcc, jobs.values())))
+    libs = {}
+    for name, so in sos.items():
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in kernels._SIGNATURES.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def timed_in_turns(calls, reps: int = 10):
+    """{name: mean ms}: each call timed in order, then in reverse."""
+    import chip_smoke
+
+    out = {k: [] for k in calls}
+    for order in (list(calls), list(reversed(list(calls)))):
+        for name in order:
+            out[name].append(chip_smoke.time_ms(calls[name], reps=reps))
+    return {k: sum(v) / len(v) for k, v in out.items()}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", type=Path, default=ROOT / "khg_tpu_torch" / "csrc",
+                    help="directory with the banded_viterbi.cu and banded_fb.cu to split")
+    ap.add_argument("--design", choices=sorted(VARIANTS), default="compiled",
+                    help="which kernels the sources hold: the parent's or the compiled paths")
+    ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "kernel_split.json")
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_split: needs an NVIDIA card", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from khg_tpu_torch import kernels
+    from khg_tpu_torch.align.banded_fb import banded_fb_fwd_cuda
+    from khg_tpu_torch.features.fbank import FbankConfig
+    from khg_tpu_torch.lang.lexicon import Lexicon, Lexiconp
+    from khg_tpu_torch.lang.topo import generate_hmm_topo
+    from khg_tpu_torch.recipes.audiomnist import digits_lexicon
+    from khg_tpu_torch.recipes.corpus_train import compile_training_graphs
+    from khg_tpu_torch.recipes.steps import gmm_init_mono
+    from khg_tpu_torch.recipes.synth import SAMPLE_RATE
+
+    build = ROOT / "build" / "split"
+    with ThreadPoolExecutor(2) as pool:
+        variants = VARIANTS[args.design]
+        fa = pool.submit(build_variants, args.src / "banded_viterbi.cu", build,
+                         variants["A"], f"{args.design}_A")
+        fe = pool.submit(build_variants, args.src / "banded_fb.cu", build,
+                         variants["E"], f"{args.design}_E")
+        libs_a, libs_e = fa.result(), fe.result()
+    with tempfile.TemporaryDirectory(prefix="khg_split_") as tmp:
+        corpus = chip_smoke.make_corpus(Path(tmp))
+        from khg_tpu_torch.data.wav import read_wav
+
+        lens = [len(read_wav(p)[0]) for p in corpus.wav_paths]
+    cfg = FbankConfig(sample_rate=SAMPLE_RATE, num_mel_bins=23)
+    lp = Lexiconp.from_lexicon(Lexicon(word2phones=digits_lexicon())).add_lex_disambig()
+    topo = generate_hmm_topo(non_sil_phones=lp.get_non_sil_phone_ids(),
+                             sil_phone=lp.get_sil_phone_id())
+    tm0, tree, _am = gmm_init_mono(
+        topo, [np.random.default_rng(0).standard_normal((64, 23)).astype(np.float32)])
+    graphs = compile_training_graphs(lp, tm0, tree, corpus.word_seqs)
+    setup = (lp, tm0, tree, graphs, lens, cfg)
+    stream = kernels.stream_handle(torch.device("cuda"))
+    result = {"card": chip_smoke.card_line()}
+
+    def call_a(lib, tables, offsets, ll, nf):
+        B, DK, S = tables.plane_cost.shape
+        T, P = ll.shape[1:]
+        offs = torch.as_tensor(offsets, dtype=torch.int32, device="cuda")
+        bp = torch.zeros((B, T, -(-S // 16) * 16), dtype=torch.int8, device="cuda")
+        tids = torch.empty((B, T), dtype=torch.int32, device="cuda")
+        cost = torch.empty((B,), dtype=torch.float32, device="cuda")
+
+        def run():
+            err = lib.launch_banded_viterbi(
+                tables.plane_cost.data_ptr(), tables.plane_tid.data_ptr(),
+                tables.state_pdf.data_ptr(), tables.init_cost.data_ptr(),
+                tables.final_cost.data_ptr(), ll.data_ptr(), nf.data_ptr(),
+                offs.data_ptr(), bp.data_ptr(), tids.data_ptr(), cost.data_ptr(),
+                B, DK, S, T, P, 0.1, stream)
+            if err:
+                raise RuntimeError(f"launch failed: {err}")
+        return run
+
+    def shape_of(tables, ll, nf):
+        B, DK, S = tables.plane_cost.shape
+        return dict(B=B, T=ll.shape[1], S=S, DK=DK, P=ll.shape[2],
+                    frames=int(nf.sum()), max_frames=int(nf.max()))
+
+    def a_split(ms):
+        if args.design == "parent":
+            return dict(frame_loop=ms["frames"],
+                        acoustic_gather=ms["frames"] - ms["frames_no_ll"],
+                        argmin=ms["frames_argmin"] - ms["frames"],
+                        backtrace=ms["whole"] - ms["frames_argmin"])
+        return dict(frame_loop=ms["frames"],
+                    acoustic_loads=ms["frames"] - ms["frames_no_ll"],
+                    backpointers=ms["frames"] - ms["frames_no_bp"],
+                    argmin=ms["frames_argmin"] - ms["frames"],
+                    backtrace=ms["whole"] - ms["frames_argmin"])
+
+    batches = {"A": chip_smoke.banded_batch(setup, fb=False)[1:5]}
+    if args.design == "compiled":
+        from khg_tpu_torch.align.banded_kernel import sac_tables
+
+        tri = chip_smoke.tri_batch(chip_smoke.triphone_system())
+        _m, tables, offsets, _x, lens, sac, *_rest = tri
+        batches["A_sac"] = (sac_tables(tables), offsets, sac, lens)
+    for name, (tables, offsets, ll, nf) in batches.items():
+        ms = timed_in_turns({k: call_a(v, tables, offsets, ll, nf) for k, v in libs_a.items()})
+        mf = int(nf.max())
+        result[name] = dict(shape=shape_of(tables, ll, nf), variant_ms=ms,
+                            split_ms=a_split(ms),
+                            us_per_frame={k: v / mf * 1e3 for k, v in a_split(ms).items()})
+
+    _p, tables, offsets, ll, nf, T, P = chip_smoke.banded_batch(setup, fb=True)
+    B, DK, S = tables.plane_cost.shape
+    offs = torch.as_tensor(offsets, dtype=torch.int32, device="cuda")
+    alphas, log_z = banded_fb_fwd_cuda(tables, offsets, ll, nf, 0.1)
+    spost = torch.empty((B, T, S), dtype=torch.float32, device="cuda")
+    apost = torch.empty((B, DK, S), dtype=torch.float32, device="cuda")
+
+    def call_e(lib):
+        def run():
+            err = lib.launch_banded_fb_bwd(
+                tables.plane_cost.data_ptr(), tables.state_pdf.data_ptr(),
+                tables.final_cost.data_ptr(), ll.data_ptr(), nf.data_ptr(),
+                offs.data_ptr(), alphas.data_ptr(), log_z.data_ptr(),
+                spost.data_ptr(), apost.data_ptr(), B, DK, S, T, P, 0.1, stream)
+            if err:
+                raise RuntimeError(f"launch failed: {err}")
+        return run
+
+    ms = timed_in_turns({k: call_e(v) for k, v in libs_e.items()})
+    if args.design == "parent":
+        split = dict(alpha_load=ms["whole"] - ms["no_alpha_load"],
+                     acoustic_load=ms["whole"] - ms["no_ll_load"],
+                     apost_rmw=ms["whole"] - ms["no_apost_rmw"],
+                     plane_loops=ms["plane_loops"])
+    else:
+        split = dict(posterior_exp=ms["whole"] - ms["no_posterior_exp"],
+                     beta_sum=ms["whole"] - ms["no_beta_sum"],
+                     alpha_copies=ms["whole"] - ms["no_alpha_copies"])
+    result["E"] = dict(shape=shape_of(tables, ll, nf), variant_ms=ms, split_ms=split,
+                       us_per_frame=ms["whole"] / int(nf.max()) * 1e3)
+    result["latency_ns"] = chip_smoke.step_latencies()
+    line = json.dumps(result)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
