@@ -52,6 +52,7 @@ import contextlib
 import copy
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -141,6 +142,30 @@ def event_timed(module, names, calls, describe=banded_shape):
     finally:
         for n, fn in saved.items():
             setattr(module, n, fn)
+
+
+def kernel_device_ms(fn, reps: int, prefix: str):
+    """{kernel: mean device ms per call of fn} over reps calls, for the
+    kernels whose name holds ``prefix``, from a torch.profiler trace
+    (CUPTI); {} where the trace shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        found = re.search(r"\b(" + prefix + r"\w*)", e.key)
+        if found and us:
+            out[found.group(1)] = out.get(found.group(1), 0.0) + us / reps / 1e3
+    return out
 
 
 _LATENCIES = {}
@@ -798,7 +823,8 @@ def tri_batch(tri):
 
 def check_fold(batch, results):
     """Kernel F at the triphone-bench widths, on the first batch's graph
-    states and its kernel-A alignment."""
+    states and its kernel-A alignment: the whole fold function, and its
+    parts (grouping, scoring, fold) from CUDA events."""
     import torch
 
     from khg_tpu_torch.stats.accum import accumulate_am_stats_local
@@ -822,14 +848,27 @@ def check_fold(batch, results):
         raise AssertionError(f"kernel F: tot_log_like rel err {ll_rel}, frames "
                              f"{got.tot_frames.item()} vs {ref.tot_frames.item()}")
     ms = time_ms(lambda: accumulate_am_stats_fold(*args), reps=10)
-    kernel_ms = time_ms(lambda: fold_cuda(*args), reps=10)
     plain_ms = time_ms(lambda: accumulate_am_stats_local(*args), reps=10)
+    # the parts, from events around each launch of 10 calls (the gaps
+    # while the host enqueues the next launch included), and the
+    # kernels' device time from a profiler trace of 10 calls
+    parts = {"grouping": 0.0, "scoring": 0.0, "fold": 0.0}
+    for _ in range(10):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        fold_cuda(*args, events=ev)
+        torch.cuda.synchronize()
+        for i, k in enumerate(parts):
+            parts[k] += ev[i].elapsed_time(ev[i + 1]) / 10
+    device = kernel_device_ms(lambda: fold_cuda(*args), 10, "fold_")
     P, K, D = miv.shape
     B, T, _ = x.shape
     S = sp.shape[1]
     Q = 2 * D + 1
-    frames = int(((pid[:, :, None] == sp[:, None, :]).any(-1) & (fw > 0)).sum())
+    hit = (pid[:, :, None] == sp[:, None, :]).any(-1) & (fw > 0)
+    frames = int(hit.sum())
     used = int(torch.unique(sp).numel())
+    # the heaviest pdf's frames set the fold's serial length
+    heaviest = int(torch.bincount(pid[hit].long(), minlength=P).max()) if frames else 0
     # the function's bytes: the model rows of the pdfs on the graphs'
     # states, features, ids, weights and state pdfs in; (P, K, 1+2D)
     # stats and two scalars out
@@ -847,7 +886,8 @@ def check_fold(batch, results):
         name="stats_fold", route="cuda", source="khg_tpu_torch/csrc/stats_fold.cu",
         replaces="khg_tpu/stats/pallas_fold.py:57",
         max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, kernel_only_ms=kernel_ms,
+        bound_by=b_by, library_ms=None, parts_ms=parts, device_ms=device,
+        heaviest_pdf_frames=heaviest,
         design_bound_ms=d_ms, design_bound_by=d_by, max_abs_errs=errs,
         tot_log_like_rel_err=ll_rel,
         shape=dict(B=B, T=T, S=S, K=K, D=D, P=P, frames=frames, used_pdfs=used),
@@ -855,10 +895,12 @@ def check_fold(batch, results):
                   "tot_frames exact; rerun bit-identical",
     )
     log(f"kernel F stats_fold: B={B} T={T} S={S} K={K} D={D} P={P}, {frames} "
-        f"frames on {used} pdfs: errs {errs}, ll rel {ll_rel:.2e}, rerun "
-        f"bit-identical; {ms:.3f} ms with the scatter (kernel {kernel_ms:.3f}, "
-        f"plain {plain_ms:.3f}, bound {b_ms:.4f} {b_by}; all-states design "
-        f"{d_ms:.4f} {d_by})")
+        f"frames on {used} pdfs (heaviest {heaviest}): errs {errs}, ll rel "
+        f"{ll_rel:.2e}, rerun bit-identical; {ms:.3f} ms (grouping "
+        f"{parts['grouping']:.3f}, scoring {parts['scoring']:.3f}, fold "
+        f"{parts['fold']:.3f}; device {json.dumps(device)}; plain {plain_ms:.3f}, "
+        f"bound {b_ms:.4f} {b_by}; "
+        f"all-states design {d_ms:.4f} {d_by})")
 
 
 def check_banded_sac(batch, results):

@@ -61,10 +61,12 @@ from khg_tpu_torch.align.forward_backward import (
 
 # one thread per state
 _MAX_STATES = 1024
-# csrc/banded_fb.cu's compiled backward path: plane counts, at most
-# this many states, frames in its alpha ring
+# csrc/banded_fb.cu's compiled paths: plane counts of the forward and the
+# backward kernel, at most this many states; frames in the backward
+# kernel's alpha ring
+_FWD_FAST_DK = (16, 20, 32)
 _BWD_FAST_DK = (16, 20)
-_BWD_FAST_MAX_S = 512
+_FAST_MAX_S = 512
 _BWD_RING = 4
 
 
@@ -80,11 +82,21 @@ def fb_kernel_smem_bytes(DK: int, S: int) -> int:
     requests for one block.  Compiled path: the alpha ring (rows stored
     twice) and beta' + acoustic (stored twice).  Generic path: its
     tables, plus the plane-posterior sums where they fit."""
-    if DK in _BWD_FAST_DK and S <= _BWD_FAST_MAX_S:
+    if DK in _BWD_FAST_DK and S <= _FAST_MAX_S:
         return 4 * S * (2 * _BWD_RING + 4)
     base = _generic_smem_bytes(DK, S)
     with_sums = base + DK * S * 4
     return with_sums if with_sums <= _SMEM_LIMIT else base
+
+
+def fb_fwd_smem_bytes(DK: int, S: int) -> int:
+    """Shared memory that csrc/banded_fb.cu's forward launcher requests
+    for one block.  Compiled path: alpha double-buffered, each row
+    stored twice, and 32 warp maxima for log Z.  Generic path: the
+    negated plane costs, alpha double-buffered and the offsets."""
+    if DK in _FWD_FAST_DK and S <= _FAST_MAX_S:
+        return 16 * S + 128
+    return (DK * S + 2 * S) * 4 + DK * 4
 
 
 def fb_kernel_fits(DK: int, S: int) -> bool:

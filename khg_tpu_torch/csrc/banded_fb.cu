@@ -26,28 +26,29 @@
 // 256 utts x 512 frames x 256 states x 4 B = 134 MB, is written once
 // and read once: ~0.08 ms at 3.35 TB/s).
 //
-// Design: one thread block per utterance, one thread per state.  The
-// forward kernel keeps the negated plane costs and the offsets in
-// shared memory for the whole utterance, alpha double-buffered there
-// (one barrier per frame), and writes every alpha to global memory for
-// the backward kernel, instead of the TPU kernel's per-chunk
-// checkpoints and recomputation: that would add a second forward sweep
-// to the backward kernel's serial chain to save bytes that are not the
-// limit here.  log Z is reduced by one thread over the states in order,
-// as the plain version sums.  Frames at or past nf are not run: alpha
-// and beta stay as they are and their posteriors are written as 0.
+// Design: one thread block per utterance, one thread per state, alpha
+// double-buffered in shared memory (one barrier per frame).  The forward
+// kernel writes every alpha to global memory for the backward kernel,
+// instead of the TPU kernel's per-chunk checkpoints and recomputation:
+// that would add a second forward sweep to the backward kernel's serial
+// chain to save bytes that are not the limit here.  log Z sums the
+// states' terms in order, as the plain version sums.  Frames at or past
+// nf are not run: alpha and beta stay as they are and their posteriors
+// are written as 0.
 //
-// The backward kernel has a compiled path for the band widths of the
-// main paths (below, banded_fb_bwd_fast) that keeps the per-state
-// tables, the plane-posterior sums and the next alpha rows off the
-// frame chain.  Each thread owns its state's plane-posterior sums, so
-// no atomics.
+// Both kernels have a compiled path for the band widths of the main
+// paths (banded_fb_fwd_fast, banded_fb_bwd_fast) that keeps the
+// per-state tables in registers and the acoustic terms and the next
+// alpha rows off the frame chain, and a generic path (the first port's
+// layout, tables in shared memory) for every other shape.  Each thread
+// owns its state's plane-posterior sums, so no atomics.
 //
-// Shared memory: forward (DK * S + 2 * S) floats + DK ints (smem_bytes
-// below, nbuf = 1); backward, compiled path 4 S (2 PF_FB + 4) bytes,
-// generic path (DK * S + 4 * S) floats + DK ints, plus DK * S floats of
-// plane-posterior sums where they fit.  align/banded_fb.py mirrors the
-// backward sizes (fb_kernel_smem_bytes).
+// Shared memory: forward, compiled path 16 S + 128 bytes, generic path
+// (DK * S + 2 * S) floats + DK ints (smem_bytes below, nbuf = 1);
+// backward, compiled path 4 S (2 PF_FB + 4) bytes, generic path
+// (DK * S + 4 * S) floats + DK ints, plus DK * S floats of
+// plane-posterior sums where they fit.  align/banded_fb.py mirrors them
+// (fb_fwd_smem_bytes, fb_kernel_smem_bytes).
 //
 // Parity with the plain version (align/banded_fb.py): the adds use
 // __fadd_rn/__fsub_rn/__fmul_rn so nvcc cannot contract them into FMAs,
@@ -74,7 +75,118 @@ __device__ __forceinline__ float safe_max(float m) {
     return (m > KHG_HALF_NEG_BIG) ? m : 0.f;
 }
 
-__global__ void __launch_bounds__(1024) banded_fb_fwd_kernel(
+// Compiled forward path (DK = 16, 20 or 32 planes, S <= 512 states):
+// one thread per state, which holds for the whole utterance, in
+// registers, its negated in-plane costs nc[d][s] and its source index.
+// Alpha is double-buffered in shared memory and stored twice over (2S
+// floats), so s - off[d] + S needs no wrap.  Each frame puts the DK
+// candidates in registers once, then takes their max and their in-order
+// sum; the acoustic term arrives two frames ahead in registers; one
+// barrier per frame.  A warp whose every lane has m <= NEG_BIG/2 skips
+// the sum, which lse_finish does not read there.  log Z: a block max by
+// shuffles, one expf per state in parallel, then one thread's in-order
+// sum of the S terms (the plain version's order).
+template <int DK>
+__global__ void __launch_bounds__(khg::FAST_MAX_S) banded_fb_fwd_fast(
+    const float* __restrict__ plane_cost,    // (B, DK, S)
+    const int32_t* __restrict__ state_pdf,   // (B, S)
+    const float* __restrict__ init_cost,     // (B, S)
+    const float* __restrict__ final_cost,    // (B, S)
+    const float* __restrict__ loglikes,      // (B, T, P)
+    const int32_t* __restrict__ num_frames,  // (B,)
+    const int32_t* __restrict__ offsets,     // (DK,)
+    float* __restrict__ alphas,              // (B, T, S) out: alpha before frame t
+    float* __restrict__ log_z,               // (B,) out
+    int S, int T, int P, float scale)
+{
+    extern __shared__ __align__(16) float smem_fb[];
+    float* abuf = smem_fb;            // [2][2S]
+    float* red = abuf + 4 * S;        // 32 warp maxima
+
+    const int b = blockIdx.x;
+    const int tx = threadIdx.x;
+    const bool live = tx < S;
+    const int s = live ? tx : 0;
+    int nf = num_frames[b];
+    if (nf > T) nf = T;
+    if (nf < 0) nf = 0;
+
+    const float* pc = plane_cost + (size_t)b * DK * S;
+    float nc[DK];
+    int src[DK];  // s - off[d] + S
+#pragma unroll
+    for (int d = 0; d < DK; ++d) {
+        int o = offsets[d] % S;
+        if (o < 0) o += S;
+        src[d] = s + S - o;
+        nc[d] = -pc[(size_t)d * S + s];
+    }
+    float a = KHG_NEG_BIG;
+    if (live) {
+        a = fmaxf(-init_cost[(size_t)b * S + s], KHG_NEG_BIG);
+        abuf[s] = a;
+        abuf[s + S] = a;
+    }
+    const float* llb = loglikes + (size_t)b * T * P + state_pdf[(size_t)b * S + s];
+    float ac0 = (live && nf > 0) ? llb[0] : 0.f;
+    float ac1 = (live && nf > 1) ? llb[(size_t)P] : 0.f;
+    float* ab = alphas + (size_t)b * T * S + s;
+    __syncthreads();
+
+    for (int t = 0; t < nf; ++t) {
+        const float* in = abuf + (t & 1) * 2 * S;
+        float* out = abuf + ((t & 1) ^ 1) * 2 * S;
+        if (live) ab[(size_t)t * S] = a;
+        const float ac = ac0;
+        ac0 = ac1;
+        if (live && t + 2 < nf) ac1 = llb[(size_t)(t + 2) * P];
+        float c[DK];
+        float m = -INFINITY;
+#pragma unroll
+        for (int d = 0; d < DK; ++d) {
+            c[d] = __fadd_rn(in[src[d]], nc[d]);
+            m = fmaxf(m, c[d]);
+        }
+        const float ms = safe_max(m);
+        float sum = 0.f;  // read by lse_finish only where m > NEG_BIG/2
+        if (__any_sync(0xffffffffu, m > KHG_HALF_NEG_BIG)) {
+#pragma unroll
+            for (int d = 0; d < DK; ++d) sum = __fadd_rn(sum, expf(__fsub_rn(c[d], ms)));
+        }
+        const float sac = __fmul_rn(scale, ac);
+        a = fmaxf(__fadd_rn(lse_finish(m, sum, ms), sac), KHG_NEG_BIG);
+        if (live) {
+            out[s] = a;
+            out[s + S] = a;
+        }
+        __syncthreads();
+    }
+
+    // log Z = lse_s(alpha + final): the max over the block, then each
+    // state's term, summed in state order by one thread
+    const float v = live ? __fadd_rn(a, fmaxf(-final_cost[(size_t)b * S + s], KHG_NEG_BIG))
+                         : -INFINITY;
+    float m = v;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if ((tx & 31) == 0) red[tx >> 5] = m;
+    __syncthreads();
+    m = red[0];
+    for (int i = 1; i < (int)(blockDim.x >> 5); ++i) m = fmaxf(m, red[i]);
+    const float ms = safe_max(m);
+    float* terms = abuf + ((nf & 1) ^ 1) * 2 * S;  // the buffer not holding the last alpha
+    if (live) terms[s] = expf(__fsub_rn(v, ms));
+    __syncthreads();
+    if (tx == 0) {
+        float sum = 0.f;
+        for (int i = 0; i < S; ++i) sum = __fadd_rn(sum, terms[i]);
+        log_z[b] = lse_finish(m, sum, ms);
+    }
+}
+
+// Generic forward path (any other DK, or S > 512): the first port's
+// kernel, with the negated plane costs and the offsets in shared memory.
+__global__ void __launch_bounds__(1024) banded_fb_fwd_generic(
     const float* __restrict__ plane_cost,    // (B, DK, S)
     const int32_t* __restrict__ state_pdf,   // (B, S)
     const float* __restrict__ init_cost,     // (B, S)
@@ -451,6 +563,30 @@ int launch_bwd_fast(const void* plane_cost, const void* state_pdf, const void* f
     return (int)cudaGetLastError();
 }
 
+// dynamic shared memory of a compiled forward block: alpha [2][2S] and
+// 32 warp maxima for log Z
+size_t fwd_fast_smem_bytes(int S) { return (size_t)16 * S + 128; }
+
+template <int DK>
+int launch_fwd_fast(const void* plane_cost, const void* state_pdf, const void* init_cost,
+                    const void* final_cost, const void* loglikes, const void* num_frames,
+                    const void* offsets, void* alphas, void* log_z,
+                    int B, int S, int T, int P, float scale, cudaStream_t stream)
+{
+    const size_t smem = fwd_fast_smem_bytes(S);
+    cudaError_t err = cudaFuncSetAttribute(
+        banded_fb_fwd_fast<DK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (B == 0) return 0;
+    banded_fb_fwd_fast<DK><<<B, threads_for(S), smem, stream>>>(
+        (const float*)plane_cost, (const int32_t*)state_pdf,
+        (const float*)init_cost, (const float*)final_cost,
+        (const float*)loglikes, (const int32_t*)num_frames,
+        (const int32_t*)offsets, (float*)alphas, (float*)log_z,
+        S, T, P, scale);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int launch_banded_fb_fwd(
@@ -459,15 +595,29 @@ extern "C" int launch_banded_fb_fwd(
     const void* offsets, void* alphas, void* log_z, int B, int DK, int S,
     int T, int P, float scale, void* stream)
 {
+    cudaStream_t st = (cudaStream_t)stream;
+#define KHG_FAST(N)                                                        \
+    return launch_fwd_fast<N>(plane_cost, state_pdf, init_cost, final_cost, \
+                              loglikes, num_frames, offsets, alphas, log_z, \
+                              B, S, T, P, scale, st)
+    if (S <= khg::FAST_MAX_S) {
+        switch (DK) {
+            case 16: KHG_FAST(16);
+            case 20: KHG_FAST(20);
+            case 32: KHG_FAST(32);
+            default: break;
+        }
+    }
+#undef KHG_FAST
     const int nt = threads_for(S);
     if (nt > 1024) return (int)cudaErrorInvalidValue;
     const size_t smem = smem_bytes(DK, S, 1);
     cudaError_t err = cudaFuncSetAttribute(
-        banded_fb_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        banded_fb_fwd_generic, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     if (B == 0) return 0;
-    banded_fb_fwd_kernel<<<B, nt, smem, (cudaStream_t)stream>>>(
+    banded_fb_fwd_generic<<<B, nt, smem, st>>>(
         (const float*)plane_cost, (const int32_t*)state_pdf,
         (const float*)init_cost, (const float*)final_cost,
         (const float*)loglikes, (const int32_t*)num_frames,

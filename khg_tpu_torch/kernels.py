@@ -66,9 +66,14 @@ _SIGNATURES = {
     # plane_cost, state_pdf, final, loglikes, nf, offsets, alphas, log_z,
     # spost, apost, B, DK, S, T, P, scale, stream
     "launch_banded_fb_bwd": [_P] * 10 + [_I] * 5 + [_F, _P],
-    # gconsts, miv, iv, feats, pdf_ids, weights, state_pdf, local, ll,
-    # frames, B, S, T, K, D, stream
-    "launch_stats_fold": [_P] * 10 + [_I] * 5 + [_P],
+    # pdf_ids, weights, state_pdf, int workspace, ll, frames, B, S, T, P,
+    # stream
+    "launch_stats_fold_group": [_P] * 6 + [_I] * 4 + [_P],
+    # gconsts, miv, iv, feats, pdf_ids, weights, int and float
+    # workspaces, B, S, T, P, K, D, stream
+    "launch_stats_fold_score": [_P] * 8 + [_I] * 6 + [_P],
+    # int and float workspaces, out, ll, frames, B, S, T, P, K, D, stream
+    "launch_stats_fold_fold": [_P] * 5 + [_I] * 6 + [_P],
     # in_src, in_pdf, in_cost, in_tid, init, final, loglikes, nf, bp,
     # tids, total_cost, B, S, M, T, P, scale, stream
     "launch_viterbi": [_P] * 11 + [_I] * 5 + [_F, _P],
@@ -165,12 +170,14 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def check(name: str, err: int) -> None:
+def check(name: str, err: int, count: bool = True) -> None:
     """Raise on a non-zero cudaGetLastError() code from a launch;
-    count the launch otherwise."""
+    count the launch otherwise (``count=False`` for the earlier launches
+    of a kernel that takes several: it counts once per call)."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
-    LAUNCHES[name] += 1
+    if count:
+        LAUNCHES[name] += 1
 
 
 def stream_handle(device) -> ctypes.c_void_p:

@@ -1,49 +1,114 @@
-"""Wide-model stats fold: the CUDA kernel ``csrc/stats_fold.cu`` and its
-plain PyTorch version.
+"""Wide-model stats fold: the CUDA kernels ``csrc/stats_fold.cu`` and
+their plain PyTorch version.
 
 Port of khg_tpu/stats/pallas_fold.py::accumulate_am_stats_fold_pallas.
-Per frame: the aligned local state's K component scores, their
+Per frame: the K component scores of its pdf's first graph state, their
 logsumexp and posteriors times the frame weight, folded as [occ,
-post*x, post*x²] into per-(utterance, state) accumulators with
-Σ w·loglike; then the (B, S) partials are summed onto the pdf axis
-(``stats.accum.scatter_local_stats``, a sorted segment sum).  The
-plain version is ``stats.accum.accumulate_am_stats_local`` itself: the
-two compute the same function up to f32 summation order.
+post*x, post*x²] per pdf, with Σ w·loglike and Σ w per (utterance,
+state).  The plain version is ``stats.accum.accumulate_am_stats_local``
+itself: the two compute the same function up to f32 summation order.
 
-The kernel rescores only the aligned state's K rows of each frame (the
-TPU kernel scores all S*K and selects one), runs one block per
-(utterance, state) and uses no atomics, so reruns are bit-identical.
+On the card (``fold_cuda``) five hand-written launches do it all:
+match (each frame's first state and its rank in time order), group (the
+(utterance, state) segments grouped by pdf, in ascending utterance),
+place (each frame at its position in the frames sorted by (pdf, b, t)),
+score (posteriors and feature rows at those positions, a block per 64
+positions) and fold (a thread per row entry of four components walks its
+pdf's frames; the (B, S) sums per segment; the unused pdfs' zero
+rows).  No atomics on floats, so reruns are bit-identical, and the
+sums keep the order of the first port's kernel and its segment-sum
+scatter, so the outputs are too.
 
-``accumulate_am_stats_fold`` takes the kernel for CUDA tensors and the
+``accumulate_am_stats_fold`` takes the kernels for CUDA tensors and the
 plain version only for CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from khg_tpu_torch.align.banded_kernel import _SMEM_LIMIT, check_tensors
-from khg_tpu_torch.stats.accum import (
-    DenseStats,
-    accumulate_am_stats_local,
-    scatter_local_stats,
-)
+from khg_tpu_torch.stats.accum import DenseStats, accumulate_am_stats_local
 
-_CHUNK = 32  # frames per chunk in csrc/stats_fold.cu
+# csrc/stats_fold.cu: threads of the score and fold blocks, frames per
+# staged fold chunk, sorted positions per score block
+_THREADS = 256
+_CHUNK = 32
+_SCORE_CH = 64
+_NSTAGE = 3  # fold chunks in flight
 
 
-def fold_smem_bytes(K: int, D: int) -> int:
-    """Shared memory of one block of csrc/stats_fold.cu: the state's K
-    model rows and accumulators, and one chunk's frame rows, scores,
-    weights and indices (mirrors fold_smem_bytes there)."""
+def _first_port_smem_bytes(K: int, D: int) -> int:
+    """Shared memory of the first port's one-block-per-(utterance,
+    state) kernel: K model rows and accumulators, and one chunk's frame
+    rows, scores, weights and indices.  It sets which (K, D) the fold
+    takes."""
     Q = 2 * D + 1
     return (2 * K * Q + _CHUNK * (2 * D + K + 3) + 1) * 4
 
 
 def fold_kernel_fits(K: int, D: int) -> bool:
-    return fold_smem_bytes(K, D) <= _SMEM_LIMIT
+    """Whether the kernels take K components of D dims: the shapes the
+    fold has taken since it was first ported (its launches' requests,
+    ``score_smem_bytes`` and ``fold_smem_bytes``, fit whenever this
+    holds)."""
+    return _first_port_smem_bytes(K, D) <= _SMEM_LIMIT
+
+
+def score_smem_bytes(K: int, D: int) -> int:
+    """Dynamic shared memory of a score block: its frames' feature rows
+    (D rounded up to 4 floats), a pdf's K model rows of 2D+1 floats, the
+    frames' scores, weights, weighted log Z, maxima and sums, and their
+    indices, pdfs and first-frame flags (mirrors score_smem_bytes)."""
+    ch = score_chunk(K, D)
+    return (ch * ((D + 3) & ~3) + K * (2 * D + 1) + ch * (K + 4)) * 4 + 3 * ch * 4
+
+
+def score_chunk(K: int, D: int) -> int:
+    """Sorted positions a score block takes: 64, fewer where their rows
+    and scores would not fit beside the model rows."""
+    fixed = K * (2 * D + 1) * 4
+    if fixed >= _SMEM_LIMIT:
+        return 0
+    return min(_SCORE_CH, (_SMEM_LIMIT - fixed) // (((D + 3) & ~3) + K + 7) // 4)
+
+
+def _row_floats(D: int) -> int:
+    """A sorted row [x, first-frame flag] padded to 4 floats."""
+    return (D + 1 + 3) & ~3
+
+
+def _fold_nk(K: int, D: int) -> int:
+    """Posteriors a fold block stages per frame: the groups of 4
+    components its slice of (group, row entry) pairs spans, at most."""
+    return min((K + 3) & ~3, 4 * ((_THREADS - 1) // (2 * D + 1) + 2))
+
+
+def fold_chunk(K: int, D: int) -> int:
+    """Frames a fold block stages at a time (three buffers)."""
+    per_frame = _NSTAGE * (_row_floats(D) + _fold_nk(K, D)) * 4
+    return min(_CHUNK, _SMEM_LIMIT // per_frame)
+
+
+def fold_smem_bytes(K: int, D: int) -> int:
+    """Dynamic shared memory of a fold block: three buffers of a chunk's
+    sorted rows and posteriors (mirrors fold_smem_bytes)."""
+    return _NSTAGE * fold_chunk(K, D) * (_row_floats(D) + _fold_nk(K, D)) * 4
+
+
+def fold_workspace_ints(B: int, S: int, T: int, P: int) -> int:
+    """Length of the int32 workspace (mirrors fold_ws): 3 arrays of B·T,
+    3 of B·S, one of P, 5 of min(P, B·S) and an 8-int header."""
+    U = min(P, B * S)
+    return 3 * B * T + 3 * B * S + P + 5 * U + 8
+
+
+def fold_workspace_floats(B: int, T: int, K: int, D: int) -> int:
+    """Length of the float workspace (mirrors fold_fws): per sorted
+    frame its row, K posteriors, lse·w and w."""
+    return B * T * (_row_floats(D) + K + 2)
 
 
 def fold_cuda(
@@ -54,10 +119,12 @@ def fold_cuda(
     pdf_ids: torch.Tensor,        # (B, T) int32
     frame_weights: torch.Tensor,  # (B, T) f32
     state_pdf: torch.Tensor,      # (B, S) int32
+    events: Optional[Sequence["torch.cuda.Event"]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/stats_fold.cu``: (local (B, S, K, 1+2D) stats [occ,
-    post*x, post*x²], Σ w·loglike (B, S), Σ w (B, S)) per (utterance,
-    state); a state that is not its pdf's first holds zeros."""
+    """Launch ``csrc/stats_fold.cu``: ((P, K, 1+2D) stats [occ, post*x,
+    post*x²], Σ w·loglike (B, S), Σ w (B, S)); a state that takes no
+    frame holds 0.  ``events`` (4 CUDA events), when given, are recorded
+    before grouping (match, group, place), scoring, folding and after."""
     from khg_tpu_torch import kernels
 
     P, K, D = means_invvars.shape
@@ -75,20 +142,42 @@ def fold_cuda(
     if not fold_kernel_fits(K, D):
         raise ValueError(
             f"fold_cuda: K={K} components of D={D} need "
-            f"{fold_smem_bytes(K, D)} B > {_SMEM_LIMIT} B of shared memory"
+            f"{_first_port_smem_bytes(K, D)} B > {_SMEM_LIMIT} B of shared memory"
         )
     dev = feats.device
-    local = torch.empty((B, S, K, 2 * D + 1), dtype=torch.float32, device=dev)
-    ll = torch.empty((B, S), dtype=torch.float32, device=dev)
-    frames = torch.empty((B, S), dtype=torch.float32, device=dev)
-    err = kernels.lib().launch_stats_fold(
+    lib = kernels.lib()
+    stream = kernels.stream_handle(dev)
+    iws = torch.empty(fold_workspace_ints(B, S, T, P), dtype=torch.int32, device=dev)
+    fws = torch.empty(fold_workspace_floats(B, T, K, D), dtype=torch.float32, device=dev)
+    out = torch.empty((P, K, 2 * D + 1), dtype=torch.float32, device=dev)
+    ll, frames = torch.empty((2, B, S), dtype=torch.float32, device=dev)
+    ev = list(events) if events is not None else [None] * 4
+
+    def mark(i):
+        if ev[i] is not None:
+            ev[i].record()
+
+    mark(0)
+    err = lib.launch_stats_fold_group(
+        pdf_ids.data_ptr(), frame_weights.data_ptr(), state_pdf.data_ptr(),
+        iws.data_ptr(), ll.data_ptr(), frames.data_ptr(), B, S, T, P, stream,
+    )
+    kernels.check("stats_fold", err, count=False)
+    mark(1)
+    err = lib.launch_stats_fold_score(
         gconsts.data_ptr(), means_invvars.data_ptr(), inv_vars.data_ptr(),
         feats.data_ptr(), pdf_ids.data_ptr(), frame_weights.data_ptr(),
-        state_pdf.data_ptr(), local.data_ptr(), ll.data_ptr(),
-        frames.data_ptr(), B, S, T, K, D, kernels.stream_handle(dev),
+        iws.data_ptr(), fws.data_ptr(), B, S, T, P, K, D, stream,
+    )
+    kernels.check("stats_fold", err, count=False)
+    mark(2)
+    err = lib.launch_stats_fold_fold(
+        iws.data_ptr(), fws.data_ptr(), out.data_ptr(), ll.data_ptr(),
+        frames.data_ptr(), B, S, T, P, K, D, stream,
     )
     kernels.check("stats_fold", err)
-    return local, ll, frames
+    mark(3)
+    return out, ll, frames
 
 
 def accumulate_am_stats_fold(
@@ -100,21 +189,20 @@ def accumulate_am_stats_fold(
     frame_weights: torch.Tensor,
     state_pdf: torch.Tensor,
 ) -> DenseStats:
-    """accumulate_am_stats_local's stats: the kernel, then the P scatter,
-    for CUDA tensors; the plain version for CPU tensors."""
+    """accumulate_am_stats_local's stats: the kernels for CUDA tensors;
+    the plain version for CPU tensors."""
     if feats.device.type != "cuda":
         return accumulate_am_stats_local(
             gconsts, means_invvars, inv_vars, feats, pdf_ids, frame_weights,
             state_pdf,
         )
-    P, K, D = means_invvars.shape
-    local, ll, frames = fold_cuda(
+    D = means_invvars.shape[2]
+    out, ll, frames = fold_cuda(
         gconsts.contiguous(), means_invvars.contiguous(),
         inv_vars.contiguous(), feats.contiguous(),
         pdf_ids.to(torch.int32).contiguous(),
         frame_weights.to(torch.float32).contiguous(),
         state_pdf.to(torch.int32).contiguous(),
     )
-    out = scatter_local_stats(local, state_pdf, P)
     return DenseStats(out[..., 0], out[..., 1:1 + D], out[..., 1 + D:],
                       torch.sum(ll), torch.sum(frames))

@@ -1,19 +1,33 @@
-"""Which (planes, states) shapes the banded kernels take, on the CPU.
+"""Which shapes the banded kernels and the stats fold take, on the CPU.
 
 The banded Viterbi kernel (csrc/banded_viterbi.cu) and the banded
 forward-backward kernels (csrc/banded_fb.cu) each have a compiled path
 for the band widths of the main paths and a generic one for the rest.
 Whether a batch goes to a kernel at all is decided from shapes alone
-(``kernel_fits``, ``fb_kernel_fits``): every shape that the first
-ports' shared-memory formulas took must still be taken, and the Python
-mirrors of the launchers' shared-memory requests must equal the sizes
-worked out here from the .cu layouts.
+(``kernel_fits``, ``fb_kernel_fits``, ``fold_kernel_fits``): every shape
+that the first ports' shared-memory formulas took must still be taken,
+and the Python mirrors of the launchers' shared-memory requests (and of
+the stats fold's workspace) must equal the sizes worked out here from
+the .cu layouts.
 """
 
 import pytest
 
-from khg_tpu_torch.align.banded_fb import fb_kernel_fits, fb_kernel_smem_bytes
+from khg_tpu_torch.align.banded_fb import (
+    fb_fwd_smem_bytes,
+    fb_kernel_fits,
+    fb_kernel_smem_bytes,
+)
 from khg_tpu_torch.align.banded_kernel import kernel_fits, kernel_smem_bytes
+from khg_tpu_torch.stats.fold_kernel import (
+    fold_chunk,
+    fold_kernel_fits,
+    fold_smem_bytes,
+    fold_workspace_floats,
+    fold_workspace_ints,
+    score_chunk,
+    score_smem_bytes,
+)
 
 LIMIT = 232448  # shared memory a block may use on an H100 (bytes)
 
@@ -90,3 +104,92 @@ def test_viterbi_smem_mirror(DK, S):
 @pytest.mark.parametrize("DK,S", sorted(FB_SMEM))
 def test_fb_smem_mirror(DK, S):
     assert fb_kernel_smem_bytes(DK, S) == FB_SMEM[(DK, S)]
+
+
+# (DK, S): bytes that launch_banded_fb_fwd requests.  Compiled path (DK
+# 16, 20 or 32, S <= 512): alpha 2 x 2S f32 + 32 f32 warp maxima =
+# 16 S + 128.  Generic path: negated costs DK x S f32 + alpha 2 x S f32
+# + offsets DK i32.
+FB_FWD_SMEM = {
+    (20, 256): 16 * 256 + 128,                  # 4,224
+    (32, 100): 16 * 100 + 128,                  # 1,728
+    (16, 37): 16 * 37 + 128,                    # 720
+    (20, 513): (20 * 513 + 2 * 513) * 4 + 80,   # 45,224
+    (24, 80): (24 * 80 + 2 * 80) * 4 + 96,      # 8,416
+}
+
+
+@pytest.mark.parametrize("DK,S", sorted(FB_FWD_SMEM))
+def test_fb_fwd_smem_mirror(DK, S):
+    assert fb_fwd_smem_bytes(DK, S) == FB_FWD_SMEM[(DK, S)]
+
+
+@pytest.mark.parametrize("S", STATES)
+@pytest.mark.parametrize("DK", PLANES)
+def test_fb_fwd_request_fits(DK, S):
+    """Every shape the forward-backward kernels take fits the forward
+    launcher's request."""
+    if fb_kernel_fits(DK, S):
+        assert fb_fwd_smem_bytes(DK, S) <= LIMIT
+
+
+def fold_fits_before(K, D):
+    """The stats fold's acceptance before its redesign: one block per
+    (utterance, state) with K model rows and accumulators of 2D+1
+    floats and a 32-frame chunk's rows, scores, weights and indices."""
+    return (2 * K * (2 * D + 1) + 32 * (2 * D + K + 3) + 1) * 4 <= LIMIT
+
+
+FOLD_K = (1, 8, 13, 24, 32, 40, 64, 128, 512, 1040)
+FOLD_D = (1, 13, 23, 39, 80, 100, 400, 852, 853, 1000)
+
+
+@pytest.mark.parametrize("D", FOLD_D)
+@pytest.mark.parametrize("K", FOLD_K)
+def test_fold_accepted_shapes_unchanged(K, D):
+    """fold_kernel_fits takes the shapes it took before, and for each of
+    them both launches' requests fit a block."""
+    assert fold_kernel_fits(K, D) == fold_fits_before(K, D)
+    if fold_kernel_fits(K, D):
+        assert score_chunk(K, D) >= 1 and score_smem_bytes(K, D) <= LIMIT
+        assert fold_chunk(K, D) >= 1 and fold_smem_bytes(K, D) <= LIMIT
+
+
+# (K, D): bytes that csrc/stats_fold.cu's score and fold launchers
+# request.  Score: a 64-frame block's feature rows (D rounded up to 4
+# f32), K model rows of 2D+1 f32, scores (K), weights, log Z, maxima,
+# sums (4) f32 a frame, and frame indices, pdfs, first-frame flags (3 x
+# 64 i32); fewer frames where that would not fit.  Fold: three buffers
+# of a chunk's sorted rows (D+1 rounded up to 4 f32) and the posteriors
+# of the groups of 4 components a 256-pair slice spans (4 (255 // (2D+1)
+# + 2), at most K rounded up to 4); chunks of 32 frames, fewer where
+# three buffers would not fit.
+FOLD_SMEM = {
+    (32, 80): ((64 * 80 + 32 * 161 + 64 * (32 + 4)) * 4 + 768,    # 51,072
+               3 * 32 * (84 + 12) * 4),                            # 36,864
+    (8, 13): ((64 * 16 + 8 * 27 + 64 * (8 + 4)) * 4 + 768,        # 8,800
+              3 * 32 * (16 + 8) * 4),                              # 9,216
+    (40, 80): ((64 * 80 + 40 * 161 + 64 * (40 + 4)) * 4 + 768,    # 58,272
+               3 * 32 * (84 + 12) * 4),                            # 36,864
+    (1, 852): ((64 * 852 + 1 * 1705 + 64 * (1 + 4)) * 4 + 768,    # 226,980
+               3 * 22 * (856 + 4) * 4),                            # 227,040: 22 frames
+    (1040, 1): ((52 * 4 + 1040 * 3 + 52 * (1040 + 4)) * 4 + 624,  # 231,088: 52 frames
+                3 * 32 * (4 + 348) * 4),                           # 135,168
+}
+
+
+@pytest.mark.parametrize("K,D", sorted(FOLD_SMEM))
+def test_fold_smem_mirror(K, D):
+    assert (score_smem_bytes(K, D), fold_smem_bytes(K, D)) == FOLD_SMEM[(K, D)]
+
+
+@pytest.mark.parametrize("B,S,T,P", [(64, 64, 300, 2051), (2, 5, 7, 3), (3, 0, 4, 9)])
+def test_fold_workspace_mirror(B, S, T, P):
+    """fold_ws's layout: fsid, frank, order (B T each); seg_cnt,
+    seg_goff, seglist (B S each); pdf_nseg (P); used_pdf, used_sbase,
+    used_fbase, used_fcnt, uorder (min(P, B S) each); an 8-int header.
+    fold_fws's: per frame a row of D+1 floats rounded up to 4, K
+    posteriors, lse*w and w (here K = 32, D = 80: 84 + 32 + 2)."""
+    U = min(P, B * S)
+    assert fold_workspace_ints(B, S, T, P) == 3 * B * T + 3 * B * S + P + 5 * U + 8
+    assert fold_workspace_floats(B, T, 32, 80) == B * T * (84 + 32 + 2)

@@ -7,8 +7,12 @@ frame chunk cut short, the banded kernels' compiled plane counts and
 their generic paths up to 127 planes (Viterbi) or 128 planes and 1,024
 states (forward-backward), tied candidates, utterance lengths on the
 edges of their prefetch rings and backpointer chunks, utterances that
-all fail, the stats fold with pdfs shared by several states or absent
-from them, the non-banded Viterbi with 1 to 8 incoming arcs per state).
+all fail, the banded forward kernel bit-equal to its plain version on
+its compiled and generic paths, the stats fold with pdfs shared by
+several states or absent from them, one pdf taking most frames, a pdf
+on a state of only some utterances, all frames weighted 0, K not a
+multiple of 32, the non-banded Viterbi with 1 to 8 incoming arcs per
+state).
 
 These tests need an NVIDIA card and skip without one.  They import
 only the port, so they run where khg_tpu and jax are not installed;
@@ -259,16 +263,16 @@ def _fold_problem(rng, B, T, D, P, K, S, pad, device):
     (3, 70, 13, 40, 8, 13, 0), (4, 50, 16, 61, 32, 21, 3), (2, 33, 80, 30, 32, 9, 5),
 ], ids=["K8-S13", "K32-S21-pad3", "D80-K32-S9"])
 def test_stats_fold_kernel(cuda_device, B, T, D, P, K, S, pad):
-    """The fold kernel + scatter against accumulate_am_stats_local on the
-    card: occ, moments and tot_log_like within 2e-4, tot_frames within
-    1e-6; padding components exactly 0; a rerun bit-identical; states
-    that repeat a pdf hold zeros."""
+    """The fold kernels against accumulate_am_stats_local on the card:
+    occ, moments and tot_log_like within 2e-4, tot_frames within 1e-6;
+    padding components exactly 0; a rerun bit-identical; states that
+    repeat a pdf, and an utterance of zero weight, take no frame."""
     rng = np.random.default_rng(B * 100 + K)
     args = _fold_problem(rng, B, T, D, P, K, S, pad, cuda_device)
     got = accumulate_am_stats_fold(*args)
     ref = accumulate_am_stats_local(*args)
     again = accumulate_am_stats_fold(*args)
-    local, _ll, frames = fold_cuda(*args)
+    out, ll, frames = fold_cuda(*args)
     torch.cuda.synchronize()
     for a, b in zip(got[:3], ref[:3]):
         assert torch.allclose(a, b, rtol=2e-4, atol=2e-4)
@@ -277,8 +281,63 @@ def test_stats_fold_kernel(cuda_device, B, T, D, P, K, S, pad):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     if pad:
         assert float(got.occ[:, K - pad:].abs().max()) == 0.0
-    assert float(local[:, S // 2].abs().max()) == 0.0
-    assert float(frames[1].abs().max()) == 0.0 and float(local[1].abs().max()) == 0.0
+    assert torch.equal(out[..., 0], got.occ)
+    assert float(ll[:, S // 2].abs().max()) == 0.0
+    assert float(frames[:, S // 2].abs().max()) == 0.0
+    assert float(frames[1].abs().max()) == 0.0 and float(ll[1].abs().max()) == 0.0
+
+
+def _fold_case(case, rng, device):
+    """The fold's edge cases: (B, T, D, P, K, S, pad) and the alignment."""
+    B, T, D, P, K, S, pad = dict(
+        heavy=(5, 97, 16, 50, 32, 12, 0), partial=(4, 64, 13, 40, 20, 10, 2),
+        absent=(3, 45, 13, 30, 8, 7, 0), zero=(3, 40, 16, 30, 16, 8, 0),
+        k13_d13=(3, 61, 13, 35, 13, 9, 1), k45_d80=(2, 37, 80, 25, 45, 6, 4),
+        t_ragged=(3, 101, 23, 33, 24, 11, 0),
+    )[case]
+    args = _fold_problem(rng, B, T, D, P, K, S, pad, device)
+    g, miv, iv, x, pid, w, sp = args
+    pid, w, sp = pid.clone(), w.clone(), sp.clone()
+    if case == "heavy":  # one pdf takes most frames of every utterance
+        sp[:, 3] = P - 2
+        pid[:, 5:90] = P - 2
+    elif case == "partial":  # a pdf on a state of only some utterances
+        sp[:, 4] = sp[:, 0]
+        sp[1::2, 4] = P - 3
+        pid[1::2, 10:40] = P - 3
+    elif case == "absent":  # w > 0 frames whose pdf no state has
+        pid[:, ::3] = P - 1
+        w[:, ::3] = 1.0
+    elif case == "zero":  # every frame weighted 0
+        w.zero_()
+    return B, S, K, [g, miv, iv, x, pid, w, sp]
+
+
+@pytest.mark.parametrize("case", ["heavy", "partial", "absent", "zero", "k13_d13",
+                                  "k45_d80", "t_ragged"])
+def test_stats_fold_kernel_cases(cuda_device, case):
+    """The fold's load-imbalance path (one pdf with most frames), a pdf
+    on a state of only some utterances, w > 0 frames of absent pdfs,
+    all frames weighted 0, K not a multiple of 32 at D 13 and 80, T not
+    a multiple of any chunk: within 2e-4 of accumulate_am_stats_local,
+    bit-identical on a rerun."""
+    rng = np.random.default_rng(len(case) * 7 + 3)
+    B, S, K, args = _fold_case(case, rng, cuda_device)
+    got = accumulate_am_stats_fold(*args)
+    again = accumulate_am_stats_fold(*args)
+    ref = accumulate_am_stats_local(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.allclose(a, b, rtol=2e-4, atol=2e-4)
+    assert torch.allclose(got.tot_log_like, ref.tot_log_like, rtol=2e-4, atol=1e-6)
+    assert torch.allclose(got.tot_frames, ref.tot_frames, rtol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if case == "zero":
+        assert float(got.occ.abs().max()) == 0.0 and float(got.tot_frames) == 0.0
+    if case == "absent":
+        w, pid, sp = args[5], args[4], args[6]
+        hit = (pid[:, :, None] == sp[:, None, :]).any(-1) & (w > 0)
+        assert float(got.tot_frames) == pytest.approx(float(w[hit].sum()), rel=1e-6)
 
 
 def _random_arcs(rng, B, S, M, P, device):
@@ -477,6 +536,45 @@ def test_banded_fb_kernels_all_failed(cuda_device):
     assert k.failed.all()
     assert bool((k.log_z == np.float32(NEG_BIG)).all())
     _assert_fb_close(k, p)
+
+
+# forward lengths at the compiled kernel's edges: none, one frame,
+# either side of its two-frame acoustic prefetch, and T
+_FWD_T = 70
+_FWD_FRAMES = (0, 1, 2, 3, 4, 5, 33, _FWD_T)
+
+
+@pytest.mark.parametrize("DK,S,failed", [
+    (16, 64, False), (20, 256, False), (32, 100, False), (20, 37, False),
+    (16, 101, False), (20, 512, False), (20, 513, False), (24, 80, False),
+    (20, 64, True), (32, 37, True),
+], ids=["c16-S64", "c20-S256", "c32-S100", "c20-S37", "c16-S101", "c20-S512",
+        "g20-S513", "g24-S80", "c20-failed", "c32-S37-failed"])
+def test_banded_fb_fwd_bit_equal(cuda_device, DK, S, failed):
+    """Kernel D's alphas (every frame below each utterance's length) and
+    log Z bit-equal to banded_fb_fwd_plain, on the compiled path (c: 16,
+    20 and 32 planes, S up to 512, S not a multiple of 4 or 32) and the
+    generic one (g), at lengths 0, 1, either side of the prefetch
+    distance and T, and with every utterance failed."""
+    from khg_tpu_torch.align.banded_fb import banded_fb_fwd_cuda, banded_fb_fwd_plain
+
+    rng = np.random.default_rng(DK * 1000 + S + failed)
+    offsets = tuple(range(-4, DK - 4))
+    B = len(_FWD_FRAMES)
+    tables = _random_banded(rng, B, S, offsets, 23, cuda_device)
+    if failed:
+        tables = tables._replace(final_cost=torch.full_like(tables.final_cost, 1e30))
+    ll = torch.as_tensor((-20 + 4 * rng.standard_normal((B, _FWD_T, 23))).astype(np.float32),
+                         device=cuda_device)
+    nf = torch.as_tensor(np.array(_FWD_FRAMES, np.int32), device=cuda_device)
+    for scale in (0.3, 1.0):
+        ak, zk = banded_fb_fwd_cuda(tables, offsets, ll, nf, scale)
+        ap, zp = banded_fb_fwd_plain(tables, offsets, ll, nf, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(zk, zp)
+        for i, n in enumerate(_FWD_FRAMES):
+            assert torch.equal(ak[i, :n], ap[i, :n])
+    assert bool((zk < NEG_BIG / 2).all()) == failed
 
 
 @pytest.mark.parametrize("kw", [

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Split the card time of the banded Viterbi kernel (A) and of the
-banded forward-backward backward kernel (E) into their parts.
+"""Split the card time of the banded Viterbi kernel (A), of the banded
+forward-backward kernels (D forward, E backward) and of the stats fold
+(F) into their parts.
 
-    python3 tools/kernel_split.py [--src DIR] [--design parent|compiled] [--out FILE]
+    python3 tools/kernel_split.py [--src DIR] [--design parent|compiled] [--kernels A,D,E,F]
+                                  [--out FILE]
 
 DIR holds the ``banded_viterbi.cu`` and ``banded_fb.cu`` to split
 (default khg_tpu_torch/csrc; for the first port's kernels unpack the
@@ -23,13 +25,25 @@ A: frames = the frame loop alone; of it, the acoustic gather = frames
 E: each of the alpha load, the acoustic load and the read-modify-write
    of the plane posteriors in global memory = whole less whole without
    it; plane loops = the kernel with all three cut out.
+D: frames = the frame loop alone (no log Z); the acoustic loads =
+   frames less frames with a constant acoustic term; log Z = whole less
+   frames.
 --design compiled (the default: the compiled paths of the redesign,
    timed also on chip_smoke.py's first triphone batch in sac mode):
 A: frames, argmin and backtrace as above; of the frames, the acoustic
    loads and the backpointer stores (with the argmin index they need)
    each = frames less frames without it.
+D: frames, acoustic loads and log Z as for the parent.
 E: each of the posterior expfs, the beta sum and the alpha-row copies
    = whole less whole without it.
+F (compiled design only): the device time of each of its five launches
+   (match, group, place, score, fold) from a torch.profiler trace of 10
+   calls on chip_smoke.py's first triphone batch, the grouping, scoring
+   and fold stages from CUDA events, the heaviest pdf's frames, and the
+   score and fold launches of stats_fold.cu variants timed alone: the
+   dots, the model rows' loads, the per-frame sums, the posterior and
+   row writes, the segment sums, the zero rows and the fold's frame
+   loop, each = the launch less the launch without it.
 
 Prints one JSON object (and writes it to FILE, default
 chiprun_out/kernel_split.json).  Needs one NVIDIA card and nvcc.
@@ -61,6 +75,16 @@ _E_NO_LL = ("bplus = __fadd_rn(beta, __fmul_rn(scale, llb[(size_t)t * P + pdf]))
 _AC_FRAMES_ONLY = ("    const float* last = (nf & 1) ? alpha1 : alpha0;",
                    "    if (nf >= 0) return;\n    const float* last = (nf & 1) ? alpha1 : alpha0;")
 _AC_NO_LL = ("        if (live && t + 2 < nf) acr = llb[(size_t)(t + 2) * P];\n", "")
+_E_BETA_SUM = ("if (__any_sync(0xffffffffu, m > KHG_HALF_NEG_BIG)) {\n#pragma unroll\n"
+               "            for (int d = 0; d < DK; ++d) sum = __fadd_rn(sum, expf(__fsub_rn(c[d], ms)));\n"
+               "        }\n        beta = lse_finish")
+_D_PARENT_FRAMES = ("    // log Z = lse_s(alpha + final), summed over the states in order; the",
+                    "    if (nf >= 0) return;\n    // log Z = lse_s(alpha + final), summed over the states in order; the")
+_D_PARENT_NO_LL = ("const float sac = __fmul_rn(scale, llb[(size_t)t * P + pdf]);",
+                   "const float sac = __fmul_rn(scale, (float)(t & 1));")
+_D_FRAMES = ("    // log Z = lse_s(alpha + final): the max over the block, then each",
+             "    if (nf >= 0) return;\n    // log Z = lse_s(alpha + final): the max over the block, then each")
+_D_NO_LL = ("        if (live && t + 2 < nf) ac1 = llb[(size_t)(t + 2) * P];\n", "")
 VARIANTS = {
     "parent": {
         "A": {
@@ -69,6 +93,11 @@ VARIANTS = {
                                "for (int t = -1; t >= 0; --t) {\n        const int p = bpb")],
             "frames": [_A_FRAMES_ONLY],
             "frames_no_ll": [_A_FRAMES_ONLY, _A_NO_LL],
+        },
+        "D": {
+            "whole": [],
+            "frames": [_D_PARENT_FRAMES],
+            "frames_no_ll": [_D_PARENT_FRAMES, _D_PARENT_NO_LL],
         },
         "E": {
             "whole": [],
@@ -88,10 +117,16 @@ VARIANTS = {
             "frames_no_bp": [_AC_FRAMES_ONLY, ("stage[(t & (2 * CH - 1)) * Sp + s] = (int8_t)arg;",
                                                "(void)arg;")],
         },
+        "D": {
+            "whole": [],
+            "frames": [_D_FRAMES],
+            "frames_no_ll": [_D_FRAMES, _D_NO_LL],
+        },
         "E": {
             "whole": [],
             "no_posterior_exp": [("if (__any_sync(0xffffffffu, !(xm < EXP_ZERO))) {", "if (xm > 1.f) {")],
-            "no_beta_sum": [("if (__any_sync(0xffffffffu, m > KHG_HALF_NEG_BIG)) {", "if (m > 1e38f) {")],
+            "no_beta_sum": [(_E_BETA_SUM, _E_BETA_SUM.replace(
+                "if (__any_sync(0xffffffffu, m > KHG_HALF_NEG_BIG)) {", "if (m > 1e38f) {"))],
             "no_alpha_copies": [("        if (t >= 0) {\n            float* a = aring",
                                  "        if (t >= nf) {\n            float* a = aring")],
         },
@@ -151,6 +186,93 @@ def timed_in_turns(calls, reps: int = 10):
     return {k: sum(v) / len(v) for k, v in out.items()}
 
 
+# F's variants (compiled design): score and fold each timed alone
+_F_VARIANTS = {
+    "whole": [],
+    "no_dots": [("    score_dots<false>(dot, xr, mr, D);\n            score_dots<true>(dot, xr, mr + D, D);",
+                 "")],
+    "no_model": [("    stage_model(m_s, gconsts, miv, iv, pdf_s[0], K, D);", ""),
+                 ("            stage_model(m_s, gconsts, miv, iv, pdf, K, D);", "")],
+    "no_z_loop": [("for (int k = 0; k < K; ++k) z += expf(r[k] - mx);", "z = (float)K;")],
+    "no_writes": [("for (int j = wid; j < nc; j += NW) {\n        float* pr = f.post",
+                   "for (int j = wid; j < (nc & 0); j += NW) {\n        float* pr = f.post")],
+    "no_seg_items": [("const int nseg_items = nfold + w.hdr[2];", "const int nseg_items = nfold;")],
+    "no_zero_rows": [("const int nitems = nseg_items + (P + ZERO_PDFS - 1) / ZERO_PDFS;",
+                      "const int nitems = nseg_items;")],
+    "no_frame_loop": [("for (int j = 0; j < nc;) {\n                if ((starts >> j) & 1u) {",
+                       "for (int j = 0; j < (nc & 0);) {\n                if ((starts >> j) & 1u) {")],
+}
+
+
+def fold_split(chip_smoke, src: Path, build: Path):
+    """F on chip_smoke.py's first triphone batch: each launch's device
+    time (profiler), the stages by CUDA events, the heaviest pdf, and
+    the score and fold launches of patched variants timed alone (in
+    turns): each of the dots, the model rows' loads, the per-frame sums
+    (z loop) and the posterior and row writes = score less score without
+    it; the segment sums, the zero rows and the frame loop = fold less
+    fold without it."""
+    import torch
+
+    from khg_tpu_torch import kernels
+    from khg_tpu_torch.stats import fold_kernel as fk
+
+    batch = chip_smoke.tri_batch(chip_smoke.triphone_system())
+    (g, miv, iv, _w), _t, _o, x, _l, _s, pid, fw, sp = batch
+    args = (g, miv, iv, x, pid, fw, sp)
+    whole = chip_smoke.time_ms(lambda: fk.fold_cuda(*args), reps=10)
+    stages = {"grouping": 0.0, "scoring": 0.0, "fold": 0.0}
+    for _ in range(10):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        fk.fold_cuda(*args, events=ev)
+        torch.cuda.synchronize()
+        for i, k in enumerate(stages):
+            stages[k] += ev[i].elapsed_time(ev[i + 1]) / 10
+    hit = (pid[:, :, None] == sp[:, None, :]).any(-1) & (fw > 0)
+
+    libs = build_variants(src / "stats_fold.cu", build, _F_VARIANTS, "compiled_F")
+    P, K, D = miv.shape
+    B, T, _ = x.shape
+    S = sp.shape[1]
+    stream = kernels.stream_handle(x.device)
+    iws = torch.empty(fk.fold_workspace_ints(B, S, T, P), dtype=torch.int32, device="cuda")
+    fws = torch.empty(fk.fold_workspace_floats(B, T, K, D), dtype=torch.float32, device="cuda")
+    out = torch.empty((P, K, 2 * D + 1), dtype=torch.float32, device="cuda")
+    ll, frames = torch.empty((2, B, S), dtype=torch.float32, device="cuda")
+
+    def score(lib):
+        return lambda: lib.launch_stats_fold_score(
+            g.data_ptr(), miv.data_ptr(), iv.data_ptr(), x.data_ptr(), pid.data_ptr(),
+            fw.data_ptr(), iws.data_ptr(), fws.data_ptr(), B, S, T, P, K, D, stream)
+
+    def fold(lib):
+        return lambda: lib.launch_stats_fold_fold(
+            iws.data_ptr(), fws.data_ptr(), out.data_ptr(), ll.data_ptr(),
+            frames.data_ptr(), B, S, T, P, K, D, stream)
+
+    lib = libs["whole"]
+    if lib.launch_stats_fold_group(pid.data_ptr(), fw.data_ptr(), sp.data_ptr(),
+                                   iws.data_ptr(), ll.data_ptr(), frames.data_ptr(),
+                                   B, S, T, P, stream) or score(lib)():
+        raise RuntimeError("F variants: launch failed")
+    score_ms = timed_in_turns({k: score(v) for k, v in libs.items()})
+    fold_ms = timed_in_turns({k: fold(v) for k, v in libs.items()})
+    return dict(
+        shape=dict(zip("BTD", x.shape), K=K, P=P, S=S, frames=int(hit.sum())),
+        ms=whole, stages_ms=stages,
+        device_ms=chip_smoke.kernel_device_ms(lambda: fk.fold_cuda(*args), 10, "fold_"),
+        heaviest_pdf_frames=int(torch.bincount(pid[hit].long()).max()),
+        score_variant_ms=score_ms, fold_variant_ms=fold_ms,
+        split_ms=dict(dots=score_ms["whole"] - score_ms["no_dots"],
+                      model_rows=score_ms["whole"] - score_ms["no_model"],
+                      z_loop=score_ms["whole"] - score_ms["no_z_loop"],
+                      posterior_and_row_writes=score_ms["whole"] - score_ms["no_writes"],
+                      segment_sums=fold_ms["whole"] - fold_ms["no_seg_items"],
+                      zero_rows=fold_ms["whole"] - fold_ms["no_zero_rows"],
+                      fold_frame_loop=fold_ms["whole"] - fold_ms["no_frame_loop"]),
+    )
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path, default=ROOT / "khg_tpu_torch" / "csrc",
@@ -158,7 +280,10 @@ def main() -> int:
     ap.add_argument("--design", choices=sorted(VARIANTS), default="compiled",
                     help="which kernels the sources hold: the parent's or the compiled paths")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "kernel_split.json")
+    ap.add_argument("--kernels", default="A,D,E,F",
+                    help="which kernels to split (F only with --design compiled)")
     args = ap.parse_args()
+    want = set(args.kernels.split(","))
 
     import numpy as np
     import torch
@@ -178,13 +303,12 @@ def main() -> int:
     from khg_tpu_torch.recipes.synth import SAMPLE_RATE
 
     build = ROOT / "build" / "split"
-    with ThreadPoolExecutor(2) as pool:
-        variants = VARIANTS[args.design]
-        fa = pool.submit(build_variants, args.src / "banded_viterbi.cu", build,
-                         variants["A"], f"{args.design}_A")
-        fe = pool.submit(build_variants, args.src / "banded_fb.cu", build,
-                         variants["E"], f"{args.design}_E")
-        libs_a, libs_e = fa.result(), fe.result()
+    sources = {"A": "banded_viterbi.cu", "D": "banded_fb.cu", "E": "banded_fb.cu"}
+    with ThreadPoolExecutor(3) as pool:
+        futures = {k: pool.submit(build_variants, args.src / src, build,
+                                  VARIANTS[args.design][k], f"{args.design}_{k}")
+                   for k, src in sources.items() if k in want}
+        libs = {k: f.result() for k, f in futures.items()}
     with tempfile.TemporaryDirectory(prefix="khg_split_") as tmp:
         corpus = chip_smoke.make_corpus(Path(tmp))
         from khg_tpu_torch.data.wav import read_wav
@@ -237,15 +361,16 @@ def main() -> int:
                     argmin=ms["frames_argmin"] - ms["frames"],
                     backtrace=ms["whole"] - ms["frames_argmin"])
 
-    batches = {"A": chip_smoke.banded_batch(setup, fb=False)[1:5]}
-    if args.design == "compiled":
+    batches = {"A": chip_smoke.banded_batch(setup, fb=False)[1:5]} if "A" in want else {}
+    if args.design == "compiled" and "A" in want:
         from khg_tpu_torch.align.banded_kernel import sac_tables
 
         tri = chip_smoke.tri_batch(chip_smoke.triphone_system())
         _m, tables, offsets, _x, lens, sac, *_rest = tri
         batches["A_sac"] = (sac_tables(tables), offsets, sac, lens)
     for name, (tables, offsets, ll, nf) in batches.items():
-        ms = timed_in_turns({k: call_a(v, tables, offsets, ll, nf) for k, v in libs_a.items()})
+        ms = timed_in_turns({k: call_a(v, tables, offsets, ll, nf)
+                             for k, v in libs["A"].items()})
         mf = int(nf.max())
         result[name] = dict(shape=shape_of(tables, ll, nf), variant_ms=ms,
                             split_ms=a_split(ms),
@@ -255,6 +380,28 @@ def main() -> int:
     B, DK, S = tables.plane_cost.shape
     offs = torch.as_tensor(offsets, dtype=torch.int32, device="cuda")
     alphas, log_z = banded_fb_fwd_cuda(tables, offsets, ll, nf, 0.1)
+    alphas_d = torch.empty_like(alphas)
+    log_z_d = torch.empty_like(log_z)
+
+    def call_d(lib):
+        def run():
+            err = lib.launch_banded_fb_fwd(
+                tables.plane_cost.data_ptr(), tables.state_pdf.data_ptr(),
+                tables.init_cost.data_ptr(), tables.final_cost.data_ptr(),
+                ll.data_ptr(), nf.data_ptr(), offs.data_ptr(), alphas_d.data_ptr(),
+                log_z_d.data_ptr(), B, DK, S, T, P, 0.1, stream)
+            if err:
+                raise RuntimeError(f"launch failed: {err}")
+        return run
+
+    if "D" in want:
+        ms = timed_in_turns({k: call_d(v) for k, v in libs["D"].items()})
+        mf = int(nf.max())
+        split = dict(frame_loop=ms["frames"], acoustic_loads=ms["frames"] - ms["frames_no_ll"],
+                     log_z=ms["whole"] - ms["frames"])
+        result["D"] = dict(shape=shape_of(tables, ll, nf), variant_ms=ms, split_ms=split,
+                           us_per_frame=ms["whole"] / mf * 1e3,
+                           frame_loop_us_per_frame=ms["frames"] / mf * 1e3)
     spost = torch.empty((B, T, S), dtype=torch.float32, device="cuda")
     apost = torch.empty((B, DK, S), dtype=torch.float32, device="cuda")
 
@@ -269,18 +416,21 @@ def main() -> int:
                 raise RuntimeError(f"launch failed: {err}")
         return run
 
-    ms = timed_in_turns({k: call_e(v) for k, v in libs_e.items()})
-    if args.design == "parent":
-        split = dict(alpha_load=ms["whole"] - ms["no_alpha_load"],
-                     acoustic_load=ms["whole"] - ms["no_ll_load"],
-                     apost_rmw=ms["whole"] - ms["no_apost_rmw"],
-                     plane_loops=ms["plane_loops"])
-    else:
-        split = dict(posterior_exp=ms["whole"] - ms["no_posterior_exp"],
-                     beta_sum=ms["whole"] - ms["no_beta_sum"],
-                     alpha_copies=ms["whole"] - ms["no_alpha_copies"])
-    result["E"] = dict(shape=shape_of(tables, ll, nf), variant_ms=ms, split_ms=split,
-                       us_per_frame=ms["whole"] / int(nf.max()) * 1e3)
+    if "E" in want:
+        ms = timed_in_turns({k: call_e(v) for k, v in libs["E"].items()})
+        if args.design == "parent":
+            split = dict(alpha_load=ms["whole"] - ms["no_alpha_load"],
+                         acoustic_load=ms["whole"] - ms["no_ll_load"],
+                         apost_rmw=ms["whole"] - ms["no_apost_rmw"],
+                         plane_loops=ms["plane_loops"])
+        else:
+            split = dict(posterior_exp=ms["whole"] - ms["no_posterior_exp"],
+                         beta_sum=ms["whole"] - ms["no_beta_sum"],
+                         alpha_copies=ms["whole"] - ms["no_alpha_copies"])
+        result["E"] = dict(shape=shape_of(tables, ll, nf), variant_ms=ms, split_ms=split,
+                           us_per_frame=ms["whole"] / int(nf.max()) * 1e3)
+    if args.design == "compiled" and "F" in want:
+        result["F"] = fold_split(chip_smoke, args.src, build)
     result["latency_ns"] = chip_smoke.step_latencies()
     line = json.dumps(result)
     args.out.parent.mkdir(parents=True, exist_ok=True)
