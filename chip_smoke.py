@@ -544,15 +544,16 @@ def check_banded_fb(setup, results):
         f"chain {results['banded_fb_fwd']['serial_chain']}")
 
 
-def check_loglikes(P, results):
-    """Kernel B at N=256*512, D=23, K=24, f32 and bf16."""
+def loglikes_problem(P, N=256 * 512, D=23, K=24, seed=2):
+    """Kernel B's check problem: a random diagonal GMM of P pdfs with
+    K // 2 to K real components each (the rest padding: gconst -inf,
+    zero rows) and N standard-normal feature rows, on the card.
+    Returns (gconsts, means_invvars, inv_vars, feats (N // 512, 512, D)
+    or (N, D), real components per pdf)."""
     import numpy as np
     import torch
 
-    from khg_tpu_torch.gmm.fused_loglikes import loglikes_cuda, loglikes_plain
-
-    N, D, K = 256 * 512, 23, 24
-    gen = np.random.default_rng(2)
+    gen = np.random.default_rng(seed)
     means = gen.standard_normal((P, K, D))
     var = gen.uniform(0.5, 2.0, (P, K, D))
     w = gen.dirichlet(np.ones(K), P)
@@ -568,9 +569,19 @@ def check_loglikes(P, results):
     g_t = torch.as_tensor(gconst.astype(np.float32), device=dev)
     miv_t = torch.as_tensor((means * iv).astype(np.float32), device=dev)
     iv_t = torch.as_tensor(iv.astype(np.float32), device=dev)
-    x = torch.as_tensor(
-        gen.standard_normal((256, 512, D)).astype(np.float32), device=dev
-    )
+    shape = (N // 512, 512, D) if N % 512 == 0 else (N, D)
+    x = torch.as_tensor(gen.standard_normal(shape).astype(np.float32), device=dev)
+    return g_t, miv_t, iv_t, x, nreal
+
+
+def check_loglikes(P, results):
+    """Kernel B at N=256*512, D=23, K=24, f32 and bf16."""
+    import torch
+
+    from khg_tpu_torch.gmm.fused_loglikes import loglikes_cuda, loglikes_plain
+
+    N, D, K = 256 * 512, 23, 24
+    g_t, miv_t, iv_t, x, nreal = loglikes_problem(P, N, D, K)
     out = {}
     for dtype, tol in ((None, 1e-4), ("bfloat16", 5e-2)):
         got = loglikes_cuda(g_t, miv_t, iv_t, x, compute_dtype=dtype)
@@ -610,7 +621,7 @@ def check_loglikes(P, results):
     log(f"kernel B fused_loglikes: N={N} D={D} P={P} K={K}: err f32 "
         f"{out[None]:.2e} bf16 {out['bfloat16']:.2e}; {ms:.3f} ms (bf16 "
         f"{ms_bf16:.3f}, plain {plain_ms:.3f}, matmul+logsumexp "
-        f"{library_ms:.3f}, bound {b_ms:.4f} {b_by})")
+        f"{library_ms:.3f}, bound {b_ms:.4f} {b_by}, {b_ms / ms:.1%} of it)")
 
 
 def check_fbank(waves_np, cfg, results):
@@ -673,13 +684,13 @@ def check_fbank(waves_np, cfg, results):
         f"{b_ms:.4f} {b_by}; with the dense DFT {dft_ms:.4f} {dft_by})")
 
 
-def check_viterbi(setup, results):
-    """Kernel G at B=256, T=512 on the kernel A check's utterances,
-    packed without bands (incoming-arc tables, S padded to 256)."""
+def viterbi_batch(setup):
+    """Kernel G's check batch: the kernel A check's utterances (B=256,
+    T=512) packed without bands (incoming-arc tables, S padded to 256),
+    random loglikes; returns (graphs, loglikes, num_frames, T, P)."""
     import numpy as np
     import torch
 
-    from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain
     from khg_tpu_torch.recipes.pipeline import EStepPipeline
 
     _lp, tm0, _tree, graphs, _wave_lens, _cfg = setup
@@ -700,6 +711,16 @@ def check_viterbi(setup, results):
         device=DEVICE,
     )
     nf = torch.as_tensor(nfr[idx].astype(np.int32), device=DEVICE)
+    return g, ll, nf, T, P
+
+
+def check_viterbi(setup, results):
+    """Kernel G on its check batch (``viterbi_batch``), then its generic
+    kernel beyond shared memory."""
+    from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain
+
+    g, ll, nf, T, P = viterbi_batch(setup)
+    B, S, M = g.in_src.shape
     steps = int(nf.sum())
     # the arc tables, init/final, the active frames' loglike rows,
     # num_frames; tids and costs out
@@ -713,6 +734,73 @@ def check_viterbi(setup, results):
         nbytes, ops, int(nf.max()), M, S,
         dict(B=B, T=T, S=S, M=M, P=P, frames=steps, max_frames=int(nf.max())),
     )
+    check_viterbi_generic(results)
+
+
+def random_arc_tables(rng, B, S, M, P):
+    """Random incoming-arc tables on the card: state 0 initial, sources
+    mostly 0-2 states back (else anywhere), a fifth of the slots beyond
+    the first padding (cost BIG), final states at the end."""
+    import numpy as np
+    import torch
+
+    from khg_tpu_torch.align.packed import BatchedGraphs
+
+    big = np.float32(1e30)
+    s = np.arange(S)[None, :, None]
+    src = np.where(rng.uniform(size=(B, S, M)) < 0.7,
+                   np.maximum(s - rng.integers(0, 3, (B, S, M)), 0),
+                   rng.integers(0, S, (B, S, M)))
+    real = rng.uniform(size=(B, S, M)) < 0.8
+    real[:, :, 0] = True
+    cost = np.where(real, rng.uniform(0.1, 3.0, (B, S, M)), big).astype(np.float32)
+    tid = np.where(real, rng.integers(1, 90, (B, S, M)), 0).astype(np.int32)
+    pdf = rng.integers(0, P, (B, S, M)).astype(np.int32)
+    init = np.full((B, S), big, np.float32)
+    init[:, 0] = 0.0
+    final = np.full((B, S), big, np.float32)
+    final[:, -3:] = rng.uniform(0.0, 1.0, (B, 3))
+    zeros = np.zeros((B, S, M), np.int32)
+    return BatchedGraphs(*[torch.as_tensor(x, device=DEVICE) for x in (
+        src.astype(np.int32), tid, pdf, cost, zeros, zeros, zeros,
+        np.zeros((B, S, M), np.float32), init, final)])
+
+
+def check_viterbi_generic(results):
+    """Kernel G's generic path (arc tables beyond a block's shared
+    memory) at B=8, S=8,000, M=4, T=200 on random tables: bit-equal to
+    the plain version, timed, and bounded by its serial frame chain."""
+    import numpy as np
+    import torch
+
+    from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain, viterbi_plan
+
+    B, S, M, T, P = 8, 8000, 4, 200, 50
+    rng = np.random.default_rng(4)
+    g = random_arc_tables(rng, B, S, M, P)
+    ll = torch.as_tensor((-20 + 5 * rng.standard_normal((B, T, P))).astype(np.float32),
+                         device=DEVICE)
+    nf = torch.as_tensor(rng.integers(T // 2, T + 1, B).astype(np.int32), device=DEVICE)
+    plan = viterbi_plan(S, M)
+    tk, ck = viterbi_cuda(g, ll, nf, 0.1)
+    tp, cp = viterbi_plain(g, ll, nf, 0.1)
+    torch.cuda.synchronize()
+    if plan[0] != "generic" or not torch.equal(ck, cp) or not torch.equal(tk, tp):
+        raise AssertionError(f"kernel G generic {plan}: costs or tids differ from the "
+                             f"plain version (max diff {(ck - cp).abs().max().item()})")
+    ms = time_ms(lambda: viterbi_cuda(g, ll, nf, 0.1), reps=5)
+    plain_ms = time_ms(lambda: viterbi_plain(g, ll, nf, 0.1), reps=1)
+    frames = int(nf.max())
+    serial_ms, chain = serial_bound(frames, M, S)
+    results["viterbi"]["generic"] = dict(
+        B=B, S=S, M=M, T=T, P=P, max_frames=frames, plan=[plan[0], str(plan[1]), plan[2]],
+        ms=ms, plain_ms=plain_ms, us_per_frame=ms / frames * 1e3,
+        serial_bound_ms=serial_ms, serial_chain=chain,
+    )
+    log(f"kernel G viterbi generic: B={B} T={T} S={S} M={M} P={P} ({plan[0]}, "
+        f"{plan[1]} backpointers, alpha in {plan[2]} memory): bit-equal; {ms:.3f} ms, "
+        f"{ms / frames * 1e3:.3f} us per frame of the longest utterance (plain "
+        f"{plain_ms:.1f} ms, serial bound {serial_ms:.4f} ms: {chain})")
 
 
 # ------------------------------------------------------------------ phase 7
@@ -959,7 +1047,7 @@ def check_loglikes_wide(batch, results):
     )
     log(f"kernel B fused_loglikes at N={N} D={D} P={P} K={K}: err {err:.2e}; "
         f"{ms:.3f} ms (plain {plain_ms:.3f}, matmul+logsumexp {library_ms:.3f}, "
-        f"bound {b_ms:.4f} {b_by})")
+        f"bound {b_ms:.4f} {b_by}, {b_ms / ms:.1%} of it)")
 
 
 # --------------------------------------------------------------- phase 4-5

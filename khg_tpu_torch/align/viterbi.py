@@ -55,11 +55,10 @@ def viterbi_align_batch(
     acoustic_scale: float = 1.0,
 ) -> ViterbiResult:
     """Exact batched Viterbi alignment of B utterances: the kernel on
-    CUDA (it raises for tables too large for a block), the eager DP on
-    the CPU.  Both select each arc's acoustic score through its pdf;
-    khg_tpu's per-state gather (``state_pdf``) gives the same result on
-    every feasible path, since only padding arcs score differently and
-    BIG swamps them."""
+    CUDA (any S and M), the eager DP on the CPU.  Both select each
+    arc's acoustic score through its pdf; khg_tpu's per-state gather
+    (``state_pdf``) gives the same result on every feasible path, since
+    only padding arcs score differently and BIG swamps them."""
     # imported here: viterbi_kernel imports banded_kernel, which imports
     # this module
     from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain

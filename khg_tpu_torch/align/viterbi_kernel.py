@@ -10,7 +10,10 @@ frame t the DP updates all (state, incoming-arc) pairs at once:
     alpha'[b, s]   = min(min_m score[b, s, m], BIG);  bp = first argmin_m
 
 followed by a first-match argmin over the end states and a backtrace.
-The plain version and the kernel perform the same f32 operations in the
+The card takes every (S, M): a shared-memory kernel where the tables
+fit a block, a generic one (tables in global memory, wider
+backpointers) otherwise, picked by shape (``viterbi_plan``).  The plain
+version and both kernels perform the same f32 operations in the
 same order, so their costs are bit-equal and their tids equal.  Both
 lookups are direct gathers: khg_tpu's one-hot selects exist only
 because dynamic gathers inside a TPU scan serialise.
@@ -36,10 +39,18 @@ def viterbi_smem_bytes(S: int, M: int) -> int:
     return (3 * S * M + 2 * S + 2 * _block_threads(S)) * 4
 
 
-def viterbi_kernel_fits(S: int, M: int) -> bool:
-    """Whether the kernel takes S states of M incoming arcs: int8
-    backpointers need M < 128, and a block's tables must fit."""
-    return M < 128 and viterbi_smem_bytes(S, M) <= _SMEM_LIMIT
+def viterbi_plan(S: int, M: int) -> Tuple[str, torch.dtype, str]:
+    """Which kernel of csrc/viterbi.cu takes S states of M incoming arcs
+    (mirrors launch_viterbi): (kernel, backpointer dtype, where alpha
+    lives).  The shared-memory kernel where M < 128 (int8 backpointers)
+    and a block's tables fit; the generic kernel otherwise, with int8,
+    int16 or int32 backpointers for M < 128, M < 32,768 or beyond, and
+    alpha in shared memory while its two rows fit (8 S bytes beside the
+    argmin scratch), in a (B, 2, S) global scratch beyond."""
+    if M < 128 and viterbi_smem_bytes(S, M) <= _SMEM_LIMIT:
+        return "shared", torch.int8, "shared"
+    bp = torch.int8 if M < 128 else torch.int16 if M < 32768 else torch.int32
+    return "generic", bp, "shared" if 8 * S <= _SMEM_LIMIT - 256 else "global"
 
 
 def viterbi_plain(
@@ -92,7 +103,7 @@ def viterbi_cuda(
     acoustic_scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/viterbi.cu``: (tids (B, T) int32, total_cost (B,)).
-    Raises when the batch's shapes do not fit the kernel."""
+    Any S and M: ``viterbi_plan`` says which of its two kernels runs."""
     from khg_tpu_torch import kernels
 
     B, S, M = graphs.in_src.shape
@@ -110,12 +121,12 @@ def viterbi_cuda(
         (loglikes, torch.float32, (B, T, P)),
         (num_frames, torch.int32, (B,)),
     ])
-    if not viterbi_kernel_fits(S, M):
-        raise ValueError(
-            f"viterbi_cuda: S={S} states of M={M} arcs need M < 128 and "
-            f"{viterbi_smem_bytes(S, M)} B <= {_SMEM_LIMIT} B of shared memory"
-        )
-    bp = torch.empty((B, T, S), dtype=torch.int8, device=dev)
+    if M < 1:
+        raise ValueError("viterbi_cuda: states need at least one arc slot")
+    _kernel, bp_dtype, alpha_at = viterbi_plan(S, M)
+    bp = torch.empty((B, T, S), dtype=bp_dtype, device=dev)
+    alpha_ws = (torch.empty((B, 2, S), dtype=torch.float32, device=dev)
+                if alpha_at == "global" else None)
     tids = torch.empty((B, T), dtype=torch.int32, device=dev)
     cost = torch.empty((B,), dtype=torch.float32, device=dev)
     err = kernels.lib().launch_viterbi(
@@ -123,6 +134,7 @@ def viterbi_cuda(
         graphs.in_cost.data_ptr(), graphs.in_tid.data_ptr(),
         graphs.init_cost.data_ptr(), graphs.final_cost.data_ptr(),
         loglikes.data_ptr(), num_frames.data_ptr(), bp.data_ptr(),
+        alpha_ws.data_ptr() if alpha_ws is not None else None,
         tids.data_ptr(), cost.data_ptr(), B, S, M, T, P,
         float(acoustic_scale), kernels.stream_handle(dev),
     )

@@ -39,7 +39,10 @@
 //      component) scores, reading x 16 bytes at a time; one thread per
 //      frame the max, sum and log Z; then the posteriors.  Writes the
 //      posteriors, the rows [x, first-frame flag] and w, lse*w at the
-//      sorted positions.
+//      sorted positions.  Where a pdf's K model rows and one position's
+//      scores do not fit a block (K > 358 at D = 80), the scores go to
+//      the posteriors' place in the float workspace and the model rows
+//      are staged in chunks of components (score_plan): any K.
 //   5. fold (persistent blocks that take items from a counter: each
 //      used pdf's slices of (row entry q, group of 4 components) pairs,
 //      the pdfs with the most frames first, then the segments, then the
@@ -405,20 +408,45 @@ __host__ __device__ inline int score_chunk(int K, int D) {
     return fit < (size_t)SCORE_CH ? (int)fit : SCORE_CH;
 }
 
+// a score block: sorted positions (chs), components staged at once (kc),
+// and where the scores live.  The whole pdf with its scores in shared
+// memory where one position fits beside its K model rows (score_chunk);
+// otherwise up to 64 positions' rows in at most half the block (at
+// least one), the scores in the float workspace, and the model rows in
+// chunks of what fits beside them.
+struct ScorePlan {
+    int chs, kc;
+    bool scores_in_smem;
+};
+
+__host__ inline ScorePlan score_plan(int K, int D) {
+    const int whole = score_chunk(K, D);
+    if (whole >= 1) return {whole, K, true};
+    const size_t row = (size_t)(2 * D + 1) * 4, pos = (size_t)(pad4(D) + 7) * 4;
+    size_t chs = khg::SMEM_LIMIT / 2 / pos;
+    if (chs > (size_t)SCORE_CH) chs = SCORE_CH;
+    if (chs < 1) chs = 1;
+    if (chs * pos + row > khg::SMEM_LIMIT) return {0, 0, false};
+    size_t kc = (khg::SMEM_LIMIT - chs * pos) / row;
+    if (kc > (size_t)K) kc = K;
+    return {(int)chs, (int)kc, false};
+}
+
 // loads a thread keeps in flight while staging rows into shared memory
 constexpr int STAGE_BATCH = 8;
 
-// the model rows of pdf into m_s (K rows of miv | -iv/2 | g); a pdf's
-// rows are contiguous, read STAGE_BATCH elements a thread at a time
+// the model rows of components [k0, k0 + nk) of pdf into m_s (nk rows
+// of miv | -iv/2 | g); they are contiguous, read STAGE_BATCH elements a
+// thread at a time
 __device__ __forceinline__ void stage_model(
     float* m_s, const float* __restrict__ gconsts, const float* __restrict__ miv,
-    const float* __restrict__ iv, int pdf, int K, int D)
+    const float* __restrict__ iv, int pdf, int k0, int nk, int K, int D)
 {
     const int Q2 = 2 * D + 1;
-    const int n = K * D;
+    const int n = nk * D;
     const int nt = blockDim.x;
-    const float* mp = miv + (size_t)pdf * n;
-    const float* ip = iv + (size_t)pdf * n;
+    const float* mp = miv + ((size_t)pdf * K + k0) * D;
+    const float* ip = iv + ((size_t)pdf * K + k0) * D;
     for (int i0 = threadIdx.x; i0 < n; i0 += STAGE_BATCH * nt) {
         float a[STAGE_BATCH], c[STAGE_BATCH];
 #pragma unroll
@@ -438,8 +466,8 @@ __device__ __forceinline__ void stage_model(
             }
         }
     }
-    for (int k = threadIdx.x; k < K; k += nt) {
-        m_s[k * Q2 + 2 * D] = fmaxf(gconsts[(size_t)pdf * K + k], -1.0e30f);  // -inf padding -> finite
+    for (int k = threadIdx.x; k < nk; k += nt) {
+        m_s[k * Q2 + 2 * D] = fmaxf(gconsts[(size_t)pdf * K + k0 + k], -1.0e30f);  // -inf padding -> finite
     }
 }
 
@@ -478,7 +506,9 @@ __device__ __forceinline__ void score_dots(float (&dot)[SCORE_FRAMES],
     }
 }
 
-// 4. score: one block per chs sorted positions.
+// 4. score: one block per chs sorted positions, kc components' model
+// rows staged at once; the scores in shared memory or (sc_in_smem = 0)
+// at the posteriors' place in the float workspace.
 __global__ void __launch_bounds__(SCORE_THREADS) fold_score_kernel(
     const float* __restrict__ gconsts,      // (P, K)
     const float* __restrict__ miv,          // (P, K, D)
@@ -486,7 +516,7 @@ __global__ void __launch_bounds__(SCORE_THREADS) fold_score_kernel(
     const float* __restrict__ feats,        // (B, T, D)
     const int32_t* __restrict__ pdf_ids,    // (B, T)
     const float* __restrict__ weights,      // (B, T)
-    Ws w, Fws f, int chs, int K, int D)
+    Ws w, Fws f, int chs, int kc, int sc_in_smem, int K, int D)
 {
     extern __shared__ __align__(16) float smem_score[];
     const int D2 = 2 * D;
@@ -497,11 +527,16 @@ __global__ void __launch_bounds__(SCORE_THREADS) fold_score_kernel(
     const int lane = tx & 31, wid = tx >> 5;
     constexpr int NW = SCORE_THREADS / 32;
     const int CHS = chs;
+    const int p0 = blockIdx.x * CHS;
 
     float* xs = smem_score;                 // CHS * XD frame rows (16-byte aligned)
-    float* m_s = xs + CHS * XD;             // K * Q2
-    float* sc = m_s + (size_t)K * Q2;       // CHS * K
-    float* ws = sc + CHS * K;               // CHS weights
+    float* m_s = xs + CHS * XD;             // kc * Q2
+    float* ws = m_s + (size_t)kc * Q2;      // CHS weights (after CHS * K scores)
+    float* sc = f.post + (size_t)p0 * K;    // CHS * K
+    if (sc_in_smem) {
+        sc = ws;
+        ws += CHS * K;
+    }
     float* lw = ws + CHS;                   // CHS lse * w
     float* mz = lw + CHS;                   // CHS maxima
     float* zz = mz + CHS;                   // CHS sums
@@ -509,7 +544,6 @@ __global__ void __launch_bounds__(SCORE_THREADS) fold_score_kernel(
     int* pdf_s = fid_s + CHS;               // CHS pdfs
     int* first_s = pdf_s + CHS;             // CHS: a segment's first frame
 
-    const int p0 = blockIdx.x * CHS;
     const int nfr = w.hdr[1];
     if (p0 >= nfr) return;
     const int nc = min(CHS, nfr - p0);
@@ -538,36 +572,39 @@ __global__ void __launch_bounds__(SCORE_THREADS) fold_score_kernel(
             if (i < nc * D) xs[j * XD + (i - j * D)] = v[r];
         }
     }
-    stage_model(m_s, gconsts, miv, iv, pdf_s[0], K, D);
-    // runs of one pdf: its model rows, then its frames' scores, each
-    // thread SCORE_FRAMES frames of one component
+    stage_model(m_s, gconsts, miv, iv, pdf_s[0], 0, min(kc, K), K, D);
+    // runs of one pdf: its model rows (kc components at a time), then
+    // its frames' scores, each thread SCORE_FRAMES frames of one component
     for (int ja = 0; ja < nc;) {
         const int pdf = pdf_s[ja];
         int jb = ja + 1;
         while (jb < nc && pdf_s[jb] == pdf) ++jb;
-        if (ja > 0) {
-            __syncthreads();  // the previous run's model rows are free
-            stage_model(m_s, gconsts, miv, iv, pdf, K, D);
-        }
-        __syncthreads();
         const int ngroups = (jb - ja + SCORE_FRAMES - 1) / SCORE_FRAMES;
-        for (int tile = tx; tile < ngroups * K; tile += SCORE_THREADS) {
-            const int g = tile / K;
-            const int k = tile - g * K;
-            const float* mr = m_s + (size_t)k * Q2;
-            const float* xr[SCORE_FRAMES];
-            float dot[SCORE_FRAMES];
-#pragma unroll
-            for (int r = 0; r < SCORE_FRAMES; ++r) {
-                xr[r] = xs + min(ja + g * SCORE_FRAMES + r, jb - 1) * XD;
-                dot[r] = 0.f;
+        for (int k0 = 0; k0 < K; k0 += kc) {
+            const int nk = min(kc, K - k0);
+            if (ja > 0 || k0 > 0) {
+                __syncthreads();  // the previous model rows are free
+                stage_model(m_s, gconsts, miv, iv, pdf, k0, nk, K, D);
             }
-            score_dots<false>(dot, xr, mr, D);
-            score_dots<true>(dot, xr, mr + D, D);
+            __syncthreads();
+            for (int tile = tx; tile < ngroups * nk; tile += SCORE_THREADS) {
+                const int g = tile / nk;
+                const int k = tile - g * nk;
+                const float* mr = m_s + (size_t)k * Q2;
+                const float* xr[SCORE_FRAMES];
+                float dot[SCORE_FRAMES];
 #pragma unroll
-            for (int r = 0; r < SCORE_FRAMES; ++r) {
-                const int j = ja + g * SCORE_FRAMES + r;
-                if (j < jb) sc[j * K + k] = dot[r] + mr[D2];
+                for (int r = 0; r < SCORE_FRAMES; ++r) {
+                    xr[r] = xs + min(ja + g * SCORE_FRAMES + r, jb - 1) * XD;
+                    dot[r] = 0.f;
+                }
+                score_dots<false>(dot, xr, mr, D);
+                score_dots<true>(dot, xr, mr + D, D);
+#pragma unroll
+                for (int r = 0; r < SCORE_FRAMES; ++r) {
+                    const int j = ja + g * SCORE_FRAMES + r;
+                    if (j < jb) sc[j * K + k0 + k] = dot[r] + mr[D2];
+                }
             }
         }
         ja = jb;
@@ -784,8 +821,10 @@ __global__ void __launch_bounds__(THREADS) fold_fold_kernel(
 }
 
 size_t score_smem_bytes(int K, int D) {
-    const size_t ch = score_chunk(K, D);
-    return (ch * pad4(D) + (size_t)K * (2 * D + 1) + ch * ((size_t)K + 4)) * 4 + 3 * ch * 4;
+    const ScorePlan sp = score_plan(K, D);
+    const size_t ch = sp.chs;
+    return (ch * pad4(D) + (size_t)sp.kc * (2 * D + 1)
+            + ch * ((sp.scores_in_smem ? (size_t)K : 0) + 4)) * 4 + 3 * ch * 4;
 }
 
 size_t fold_smem_bytes(int K, int D) {
@@ -824,18 +863,19 @@ extern "C" int launch_stats_fold_score(
     const void* pdf_ids, const void* weights, void* iws, void* fws,
     int B, int S, int T, int P, int K, int D, void* stream)
 {
-    const int chs = score_chunk(K, D);
+    const ScorePlan sp = score_plan(K, D);
     const size_t smem = score_smem_bytes(K, D);
-    if (chs < 1 || smem > khg::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    if (sp.chs < 1 || smem > khg::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         fold_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = (int)(((size_t)B * T + chs - 1) / chs);
+    const int blocks = (int)(((size_t)B * T + sp.chs - 1) / sp.chs);
     if (blocks == 0) return 0;
     fold_score_kernel<<<blocks, SCORE_THREADS, smem, (cudaStream_t)stream>>>(
         (const float*)gconsts, (const float*)miv, (const float*)iv,
         (const float*)feats, (const int32_t*)pdf_ids, (const float*)weights,
-        fold_ws(iws, B, S, T, P), fold_fws(fws, B, T, K, D), chs, K, D);
+        fold_ws(iws, B, S, T, P), fold_fws(fws, B, T, K, D), sp.chs, sp.kc,
+        sp.scores_in_smem ? 1 : 0, K, D);
     return (int)cudaGetLastError();
 }
 

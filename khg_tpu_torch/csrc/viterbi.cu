@@ -29,6 +29,17 @@
 // is the same result.  Shared memory: 3 S M + 2 S + 2 nt words (see
 // viterbi_smem_bytes; align/viterbi_kernel.py mirrors it).
 //
+// Every other shape (M >= 128, or tables beyond a block's shared
+// memory: S > ~4,000 at M = 4, the HCLG loop states of a dense decode)
+// takes the generic kernel: the same DP, one block per utterance and
+// threads over states, but the arc tables are read from global memory
+// through the read-only path on every frame, alpha is double-buffered
+// in shared memory while 2 S floats fit there and in a (B, 2, S) global
+// scratch beyond (one barrier per frame orders it either way), and the
+// backpointers are int8 for M < 128, int16 for M < 32,768 and int32
+// beyond.  The choice is made from the shape alone (viterbi_plan in
+// align/viterbi_kernel.py mirrors it).
+//
 // Bitwise parity with the plain version (align/viterbi_kernel.py, the
 // eager DP): the same f32 operations in the same order, written with
 // __fadd_rn/__fmul_rn/__fsub_rn so nvcc cannot contract them into an
@@ -38,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <math.h>
+
+#include "banded_common.cuh"
 
 #define KHG_BIG 1.0e30f
 
@@ -156,24 +169,170 @@ __global__ void viterbi_kernel(
     }
 }
 
+// The generic kernel: arc tables in global memory, alpha in shared
+// memory (ALPHA_SMEM) or in the (B, 2, S) scratch, BP-wide backpointers.
+// The arithmetic, the order of the arcs and both argmins are those of
+// viterbi_kernel, so the two give the same bits.
+template <typename BP, bool ALPHA_SMEM>
+__global__ void viterbi_generic_kernel(
+    const int32_t* __restrict__ in_src,      // (B, S, M)
+    const int32_t* __restrict__ in_pdf,      // (B, S, M)
+    const float* __restrict__ in_cost,       // (B, S, M)
+    const int32_t* __restrict__ in_tid,      // (B, S, M)
+    const float* __restrict__ init_cost,     // (B, S)
+    const float* __restrict__ final_cost,    // (B, S)
+    const float* __restrict__ loglikes,      // (B, T, P)
+    const int32_t* __restrict__ num_frames,  // (B,)
+    BP* __restrict__ bp,                     // (B, T, S) scratch
+    float* __restrict__ alpha_ws,            // (B, 2, S) scratch (global alpha)
+    int32_t* __restrict__ tids,              // (B, T) out
+    float* __restrict__ total_cost,          // (B,) out
+    int S, int M, int T, int P, float scale)
+{
+    extern __shared__ float smem[];
+    __shared__ float red_v[32];
+    __shared__ int red_i[32];
+
+    const int b = blockIdx.x;
+    const int tx = threadIdx.x;
+    const int nt = blockDim.x;
+    int nf = num_frames[b];
+    if (nf > T) nf = T;
+    if (nf < 0) nf = 0;
+
+    float* cur = ALPHA_SMEM ? smem : alpha_ws + (size_t)b * 2 * S;
+    float* nxt = cur + S;
+    const size_t tab = (size_t)b * S * M;
+    for (int s = tx; s < S; s += nt) cur[s] = init_cost[(size_t)b * S + s];
+    __syncthreads();
+
+    const float* llb = loglikes + (size_t)b * T * P;
+    BP* bpb = bp + (size_t)b * T * S;
+    for (int t = 0; t < nf; ++t) {
+        const float* llt = llb + (size_t)t * P;
+        for (int s = tx; s < S; s += nt) {
+            const size_t row = tab + (size_t)s * M;
+            float best = INFINITY;
+            int arg = 0;
+            for (int m = 0; m < M; ++m) {
+                const int src = __ldg(in_src + row + m);
+                const float a = ALPHA_SMEM ? cur[src] : __ldcg(cur + src);
+                const float c = __fsub_rn(
+                    __fadd_rn(a, __ldg(in_cost + row + m)),
+                    __fmul_rn(scale, __ldg(llt + __ldg(in_pdf + row + m))));
+                if (c < best) {  // strict: the first arc attaining the min
+                    best = c;
+                    arg = m;
+                }
+            }
+            nxt[s] = fminf(best, KHG_BIG);
+            bpb[(size_t)t * S + s] = (BP)arg;
+        }
+        __syncthreads();
+        float* tmp = cur;
+        cur = nxt;
+        nxt = tmp;
+    }
+
+    // first-match argmin of alpha + final over s
+    float lbest = INFINITY;
+    int larg = S;
+    for (int s = tx; s < S; s += nt) {
+        const float a = ALPHA_SMEM ? cur[s] : __ldcg(cur + s);
+        const float tot = __fadd_rn(a, final_cost[(size_t)b * S + s]);
+        if (tot < lbest) {
+            lbest = tot;
+            larg = s;
+        }
+    }
+    for (int t = nf + tx; t < T; t += nt) tids[(size_t)b * T + t] = 0;
+    khg::block_argmin(lbest, larg, red_v, red_i);
+    if (tx != 0) return;
+    total_cost[b] = lbest;
+    int v = larg;
+    for (int t = nf - 1; t >= 0; --t) {
+        const size_t x = tab + (size_t)v * M + bpb[(size_t)t * S + v];
+        tids[(size_t)b * T + t] = in_tid[x];
+        v = in_src[x];
+    }
+}
+
+// alpha of the generic kernel stays in shared memory while its two rows
+// fit beside the static argmin scratch
+bool generic_alpha_in_smem(int S)
+{
+    return (size_t)8 * S <= khg::SMEM_LIMIT - 256;
+}
+
+// a launch_viterbi call's arguments
+struct Args {
+    const void *in_src, *in_pdf, *in_cost, *in_tid, *init_cost, *final_cost,
+        *loglikes, *num_frames;
+    void *bp, *alpha_ws, *tids, *total_cost;
+    int B, S, M, T, P;
+    float scale;
+};
+
+template <typename BP, bool ALPHA_SMEM>
+int launch_generic(const Args& a, cudaStream_t stream)
+{
+    const size_t smem = ALPHA_SMEM ? (size_t)8 * a.S : 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        viterbi_generic_kernel<BP, ALPHA_SMEM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (a.B == 0 || a.S == 0) return 0;
+    viterbi_generic_kernel<BP, ALPHA_SMEM><<<a.B, block_threads(a.S), smem, stream>>>(
+        (const int32_t*)a.in_src, (const int32_t*)a.in_pdf,
+        (const float*)a.in_cost, (const int32_t*)a.in_tid,
+        (const float*)a.init_cost, (const float*)a.final_cost,
+        (const float*)a.loglikes, (const int32_t*)a.num_frames, (BP*)a.bp,
+        (float*)a.alpha_ws, (int32_t*)a.tids, (float*)a.total_cost, a.S, a.M,
+        a.T, a.P, a.scale);
+    return (int)cudaGetLastError();
+}
+
+template <typename BP>
+int launch_generic_bp(const Args& a, cudaStream_t stream)
+{
+    if (generic_alpha_in_smem(a.S)) return launch_generic<BP, true>(a, stream);
+    if (a.alpha_ws == nullptr && a.B > 0 && a.S > 0) return (int)cudaErrorInvalidValue;
+    return launch_generic<BP, false>(a, stream);
+}
+
 }  // namespace
 
+// One entry point for both kernels: the shared-memory kernel where the
+// tables fit a block and M < 128 (int8 backpointers), the generic one
+// otherwise, with int8 / int16 / int32 backpointers for M < 128 / M <
+// 32,768 / beyond.  bp must be (B, T, S) of that type; alpha_ws a (B, 2,
+// S) float scratch where the generic kernel keeps alpha in global
+// memory (8 S > 232,448 - 256 bytes), else unused.
 extern "C" int launch_viterbi(
     const void* in_src, const void* in_pdf, const void* in_cost,
     const void* in_tid, const void* init_cost, const void* final_cost,
-    const void* loglikes, const void* num_frames, void* bp, void* tids,
-    void* total_cost, int B, int S, int M, int T, int P, float scale,
-    void* stream)
+    const void* loglikes, const void* num_frames, void* bp, void* alpha_ws,
+    void* tids, void* total_cost, int B, int S, int M, int T, int P,
+    float scale, void* stream)
 {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (M < 1) return (int)cudaErrorInvalidValue;
     const int nt = block_threads(S);
     const size_t smem = viterbi_smem_bytes(S, M, nt);
-    if (M >= 128 || smem > 232448) return (int)cudaErrorInvalidValue;
+    if (M >= 128 || smem > khg::SMEM_LIMIT) {
+        const Args a{in_src, in_pdf, in_cost, in_tid, init_cost, final_cost,
+                     loglikes, num_frames, bp, alpha_ws, tids, total_cost,
+                     B, S, M, T, P, scale};
+        if (M < 128) return launch_generic_bp<int8_t>(a, st);
+        if (M < 32768) return launch_generic_bp<int16_t>(a, st);
+        return launch_generic_bp<int32_t>(a, st);
+    }
     cudaError_t err = cudaFuncSetAttribute(
         viterbi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     if (B == 0 || S == 0) return 0;
-    viterbi_kernel<<<B, nt, smem, (cudaStream_t)stream>>>(
+    viterbi_kernel<<<B, nt, smem, st>>>(
         (const int32_t*)in_src, (const int32_t*)in_pdf,
         (const float*)in_cost, (const int32_t*)in_tid,
         (const float*)init_cost, (const float*)final_cost,

@@ -75,8 +75,8 @@ _SIGNATURES = {
     # int and float workspaces, out, ll, frames, B, S, T, P, K, D, stream
     "launch_stats_fold_fold": [_P] * 5 + [_I] * 6 + [_P],
     # in_src, in_pdf, in_cost, in_tid, init, final, loglikes, nf, bp,
-    # tids, total_cost, B, S, M, T, P, scale, stream
-    "launch_viterbi": [_P] * 11 + [_I] * 5 + [_F, _P],
+    # alpha_ws, tids, total_cost, B, S, M, T, P, scale, stream
+    "launch_viterbi": [_P] * 12 + [_I] * 5 + [_F, _P],
     # in, out, iters, stream (a measurement probe, not a path's kernel)
     "launch_latency_probe": [_P, _P, _I, _P],
     # next, out, iters, stream (a dependent global-load chain)

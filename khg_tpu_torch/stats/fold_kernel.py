@@ -20,7 +20,10 @@ sums keep the order of the first port's kernel and its segment-sum
 scatter, so the outputs are too.
 
 ``accumulate_am_stats_fold`` takes the kernels for CUDA tensors and the
-plain version only for CPU tensors.
+plain version only for CPU tensors.  The kernels take every K: where a
+pdf's K model rows do not fit a score block beside one frame's scores,
+the score launch stages them in chunks of components and keeps the
+scores in the float workspace (``score_plan``).
 """
 
 from __future__ import annotations
@@ -40,39 +43,52 @@ _SCORE_CH = 64
 _NSTAGE = 3  # fold chunks in flight
 
 
-def _first_port_smem_bytes(K: int, D: int) -> int:
-    """Shared memory of the first port's one-block-per-(utterance,
-    state) kernel: K model rows and accumulators, and one chunk's frame
-    rows, scores, weights and indices.  It sets which (K, D) the fold
-    takes."""
-    Q = 2 * D + 1
-    return (2 * K * Q + _CHUNK * (2 * D + K + 3) + 1) * 4
-
-
 def fold_kernel_fits(K: int, D: int) -> bool:
-    """Whether the kernels take K components of D dims: the shapes the
-    fold has taken since it was first ported (its launches' requests,
-    ``score_smem_bytes`` and ``fold_smem_bytes``, fit whenever this
-    holds)."""
-    return _first_port_smem_bytes(K, D) <= _SMEM_LIMIT
+    """Whether the kernels take K components of D dims: their launches'
+    own limits (mirrors launch_stats_fold_score and _fold): a score block
+    holds at least one frame's row and one model row of 2D+1 floats, a
+    fold block at least one frame in each of its buffers.  Every K fits,
+    up to D = 19,359."""
+    return score_plan(K, D)[0] >= 1 and fold_chunk(K, D) >= 1
 
 
 def score_smem_bytes(K: int, D: int) -> int:
     """Dynamic shared memory of a score block: its frames' feature rows
-    (D rounded up to 4 floats), a pdf's K model rows of 2D+1 floats, the
-    frames' scores, weights, weighted log Z, maxima and sums, and their
-    indices, pdfs and first-frame flags (mirrors score_smem_bytes)."""
-    ch = score_chunk(K, D)
-    return (ch * ((D + 3) & ~3) + K * (2 * D + 1) + ch * (K + 4)) * 4 + 3 * ch * 4
+    (D rounded up to 4 floats), model rows of 2D+1 floats, the frames'
+    scores where they stay in shared memory, weights, weighted log Z,
+    maxima and sums, and their indices, pdfs and first-frame flags
+    (mirrors score_smem_bytes)."""
+    ch, kc, in_smem = score_plan(K, D)
+    return (ch * ((D + 3) & ~3) + kc * (2 * D + 1) + ch * ((K if in_smem else 0) + 4)
+            ) * 4 + 3 * ch * 4
 
 
 def score_chunk(K: int, D: int) -> int:
-    """Sorted positions a score block takes: 64, fewer where their rows
-    and scores would not fit beside the model rows."""
+    """Sorted positions a score block of a whole pdf takes: 64, fewer
+    where their rows and scores would not fit beside the K model rows;
+    0 where not even one fits."""
     fixed = K * (2 * D + 1) * 4
     if fixed >= _SMEM_LIMIT:
         return 0
     return min(_SCORE_CH, (_SMEM_LIMIT - fixed) // (((D + 3) & ~3) + K + 7) // 4)
+
+
+def score_plan(K: int, D: int) -> Tuple[int, int, bool]:
+    """A score block's (sorted positions, components staged at once,
+    scores in shared memory) (mirrors score_plan): the whole pdf with its
+    scores in shared memory where ``score_chunk`` takes a position;
+    otherwise up to 64 positions' rows in at most half the block (at
+    least one), their scores in the float workspace (the posteriors'
+    place) and the model rows in chunks of what fits beside them (K >
+    358 at D = 80)."""
+    whole = score_chunk(K, D)
+    if whole >= 1:
+        return whole, K, True
+    row, pos = (2 * D + 1) * 4, (((D + 3) & ~3) + 7) * 4
+    ch = max(1, min(_SCORE_CH, _SMEM_LIMIT // 2 // pos))
+    if ch * pos + row > _SMEM_LIMIT:
+        return 0, 0, False
+    return ch, min(K, (_SMEM_LIMIT - ch * pos) // row), False
 
 
 def _row_floats(D: int) -> int:
@@ -141,8 +157,7 @@ def fold_cuda(
     ])
     if not fold_kernel_fits(K, D):
         raise ValueError(
-            f"fold_cuda: K={K} components of D={D} need "
-            f"{_first_port_smem_bytes(K, D)} B > {_SMEM_LIMIT} B of shared memory"
+            f"fold_cuda: rows of D={D} do not fit a score block or a fold block"
         )
     dev = feats.device
     lib = kernels.lib()

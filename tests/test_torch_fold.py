@@ -115,7 +115,8 @@ def test_gather_branch_matches_all_scores_branch(monkeypatch, frac):
 
 def test_fold_kernel_wrapper_on_cpu():
     """On CPU tensors the fold runs its plain version; the kernel's
-    wrapper refuses CPU tensors; the main path's widths fit a block."""
+    wrapper refuses CPU tensors; the kernels take every K (up to D =
+    19,359)."""
     args = list(map(torch.as_tensor, _problem(6)))
     got = accumulate_am_stats_fold(*args)
     ref = accumulate_am_stats_local(*args)
@@ -123,4 +124,6 @@ def test_fold_kernel_wrapper_on_cpu():
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
         fold_cuda(*args)
-    assert fold_kernel_fits(32, 80) and not fold_kernel_fits(64, 400)
+    assert fold_kernel_fits(32, 80) and fold_kernel_fits(64, 400)
+    assert fold_kernel_fits(359, 80) and fold_kernel_fits(100_000, 80)
+    assert fold_kernel_fits(8, 19359) and not fold_kernel_fits(8, 19360)

@@ -5,7 +5,9 @@ forward-backward kernels (csrc/banded_fb.cu) each have a compiled path
 for the band widths of the main paths and a generic one for the rest.
 Whether a batch goes to a kernel at all is decided from shapes alone
 (``kernel_fits``, ``fb_kernel_fits``, ``fold_kernel_fits``): every shape
-that the first ports' shared-memory formulas took must still be taken,
+that the first ports' shared-memory formulas took must still be taken
+(the fold now takes every K, staging a pdf's model rows in chunks of
+components where they do not fit a score block whole),
 and the Python mirrors of the launchers' shared-memory requests (and of
 the stats fold's workspace) must equal the sizes worked out here from
 the .cu layouts.
@@ -19,13 +21,18 @@ from khg_tpu_torch.align.banded_fb import (
     fb_kernel_smem_bytes,
 )
 from khg_tpu_torch.align.banded_kernel import kernel_fits, kernel_smem_bytes
+from khg_tpu_torch.gmm.fused_loglikes import (
+    loglikes_grid,
+    loglikes_smem_bytes,
+    padded_width,
+)
 from khg_tpu_torch.stats.fold_kernel import (
     fold_chunk,
     fold_kernel_fits,
     fold_smem_bytes,
     fold_workspace_floats,
     fold_workspace_ints,
-    score_chunk,
+    score_plan,
     score_smem_bytes,
 )
 
@@ -147,12 +154,63 @@ FOLD_D = (1, 13, 23, 39, 80, 100, 400, 852, 853, 1000)
 @pytest.mark.parametrize("D", FOLD_D)
 @pytest.mark.parametrize("K", FOLD_K)
 def test_fold_accepted_shapes_unchanged(K, D):
-    """fold_kernel_fits takes the shapes it took before, and for each of
-    them both launches' requests fit a block."""
-    assert fold_kernel_fits(K, D) == fold_fits_before(K, D)
-    if fold_kernel_fits(K, D):
-        assert score_chunk(K, D) >= 1 and score_smem_bytes(K, D) <= LIMIT
-        assert fold_chunk(K, D) >= 1 and fold_smem_bytes(K, D) <= LIMIT
+    """Every (K, D) the first port took is still taken, and every other
+    one here too (fold_kernel_fits is the launches' own limits, which
+    every K meets up to D = 19,359); every shape fits both launches'
+    requests."""
+    assert fold_kernel_fits(K, D)
+    assert score_plan(K, D)[0] >= 1 and fold_chunk(K, D) >= 1
+    assert score_smem_bytes(K, D) <= LIMIT and fold_smem_bytes(K, D) <= LIMIT
+
+
+def score_fits(K, D):
+    """A whole-pdf score block's request, worked out from the .cu layout:
+    K model rows of 2D+1 f32, and one frame's feature row (D rounded up
+    to 4), K scores, 4 f32 and 3 i32."""
+    return (K * (2 * D + 1) + ((D + 3) & ~3) + K + 4 + 3) * 4 <= LIMIT
+
+
+# (D, largest K a score block takes whole): beyond it the score launch
+# stages the model rows in chunks of components and keeps the scores in
+# the float workspace
+FOLD_K_MAX = {1: 14525, 13: 2074, 23: 1210, 39: 725, 80: 358, 100: 287,
+              400: 71, 852: 33, 1000: 28, 2000: 14}
+
+
+@pytest.mark.parametrize("D", sorted(FOLD_K_MAX))
+def test_fold_routed_shapes(D):
+    """The largest K each D scores whole is the whole-pdf block's limit;
+    one more component (and a hundred times as many) goes to the chunked
+    score block (scores in the workspace), which the kernels take too.  Shapes the first port
+    refused (K = 200 at D = 80) score whole."""
+    K = FOLD_K_MAX[D]
+    assert score_plan(K, D) == (score_plan(K, D)[0], K, True) and score_fits(K, D)
+    assert not score_plan(K + 1, D)[2] and not score_fits(K + 1, D)
+    assert fold_kernel_fits(K + 1, D) and fold_kernel_fits(100 * K, D)
+    assert not fold_fits_before(K, D)
+    assert score_plan(200, 80) == (64, 200, True) and not fold_fits_before(200, 80)
+
+
+# (K, D): (sorted positions, components staged at once, scores in shared
+# memory) of a score block.  Whole pdf while one position fits beside its
+# K model rows; otherwise positions' rows of (D rounded up to 4) + 7 f32
+# in at most half of the block (64 at most, 1 at least) and model rows
+# of 2D+1 f32 in the rest
+SCORE_PLAN = {
+    (32, 80): (64, 32, True),
+    (358, 80): (1, 358, True),
+    (359, 80): (64, (LIMIT - 64 * 87 * 4) // (161 * 4), False),        # 326
+    (100_000, 80): (64, 326, False),
+    (100, 1000): (LIMIT // 2 // (1007 * 4), 14, False),               # 28 positions
+    (8, 19359): (1, 1, False),
+    (8, 40000): (0, 0, False),
+}
+
+
+@pytest.mark.parametrize("K,D", sorted(SCORE_PLAN))
+def test_fold_score_plan_mirror(K, D):
+    assert score_plan(K, D) == SCORE_PLAN[(K, D)]
+    assert fold_kernel_fits(K, D) == (SCORE_PLAN[(K, D)][0] >= 1)
 
 
 # (K, D): bytes that csrc/stats_fold.cu's score and fold launchers
@@ -175,12 +233,62 @@ FOLD_SMEM = {
                3 * 22 * (856 + 4) * 4),                            # 227,040: 22 frames
     (1040, 1): ((52 * 4 + 1040 * 3 + 52 * (1040 + 4)) * 4 + 624,  # 231,088: 52 frames
                 3 * 32 * (4 + 348) * 4),                           # 135,168
+    # chunked score blocks: no scores in shared memory
+    (400, 80): ((64 * 80 + 326 * 161 + 64 * 4) * 4 + 768,         # 232,216
+                3 * 32 * (84 + 12) * 4),                           # 36,864
+    (5000, 13): ((64 * 16 + 2097 * 27 + 64 * 4) * 4 + 768,        # 232,364
+                 3 * 32 * (16 + 44) * 4),                          # 23,040
+    (100, 1000): ((28 * 1000 + 14 * 2001 + 28 * 4) * 4 + 336,     # 224,840
+                  3 * 19 * (1004 + 8) * 4),                        # 230,736: 19 frames
 }
 
 
 @pytest.mark.parametrize("K,D", sorted(FOLD_SMEM))
 def test_fold_smem_mirror(K, D):
     assert (score_smem_bytes(K, D), fold_smem_bytes(K, D)) == FOLD_SMEM[(K, D)]
+
+
+# kernel B (csrc/loglikes.cu): a 4-stage ring of 16-column slices, each
+# 128 rows and 8 components x 8 pdfs of 4-value f32 vectors (bf16 is
+# converted on its way in); a running max and sum for each of 256
+# threads x 4 rows; per pdf its real components' gconsts and indices (K
+# each) and their count
+LOGLIKES_SMEM = {
+    8: 4 * 4 * (128 + 8 * 8) * 16 + 2 * 4 * 256 * 4 + 2 * 8 * 8 * 4 + 32,     # 57,888
+    24: 4 * 4 * (128 + 8 * 8) * 16 + 2 * 4 * 256 * 4 + 2 * 8 * 24 * 4 + 32,   # 58,912
+    32: 4 * 4 * (128 + 8 * 8) * 16 + 2 * 4 * 256 * 4 + 2 * 8 * 32 * 4 + 32,   # 59,424
+    2735: 57344 + 2 * 8 * 2735 * 4 + 32,                                        # 232,416
+}
+
+
+@pytest.mark.parametrize("K", sorted(LOGLIKES_SMEM))
+def test_loglikes_smem_mirror(K):
+    """loglikes_smem_bytes mirrors the launcher's request; at the main
+    paths' K three blocks fit an SM's 228 KB (each reserving 1 KB), and
+    K = 2,735 is the most a block takes."""
+    assert loglikes_smem_bytes(K) == LOGLIKES_SMEM[K]
+    assert loglikes_smem_bytes(K) <= LIMIT
+    if K <= 32:
+        assert 3 * (loglikes_smem_bytes(K) + 1024) <= 228 * 1024
+    else:
+        assert loglikes_smem_bytes(K + 1) > LIMIT
+
+
+@pytest.mark.parametrize("N,P,grid", [(19200, 2051, (150, 257)), (131072, 50, (1024, 7)),
+                                      (4096, 2051, (32, 257)), (333, 21, (3, 3)),
+                                      (1, 1, (1, 1))])
+def test_loglikes_grid_mirror(N, P, grid):
+    """Blocks of 128 rows x 8 pdfs: phase 7's batch, the D=23 check,
+    the D=80 check, and tiles cut short."""
+    assert loglikes_grid(N, P) == grid
+
+
+@pytest.mark.parametrize("d2,width", [(2, 48), (26, 48), (46, 48), (48, 48), (78, 80),
+                                      (160, 160), (200, 320), (1706, 1760)])
+def test_loglikes_widths_take_the_kernel(d2, width):
+    """The wrapper's widths are multiples of the kernel's 16-column
+    slice."""
+    assert padded_width(d2) == width and width % 16 == 0
 
 
 @pytest.mark.parametrize("B,S,T,P", [(64, 64, 300, 2051), (2, 5, 7, 3), (3, 0, 4, 9)])

@@ -11,8 +11,8 @@ all fail, the banded forward kernel bit-equal to its plain version on
 its compiled and generic paths, the stats fold with pdfs shared by
 several states or absent from them, one pdf taking most frames, a pdf
 on a state of only some utterances, all frames weighted 0, K not a
-multiple of 32, the non-banded Viterbi with 1 to 8 incoming arcs per
-state).
+multiple of 32 or too many to score whole (K up to 2,500), the non-banded Viterbi
+with 1 to 200 incoming arcs per state and up to 30,000 states).
 
 These tests need an NVIDIA card and skip without one.  They import
 only the port, so they run where khg_tpu and jax are not installed;
@@ -107,6 +107,29 @@ def test_loglikes_kernel(cuda_device, P, K, D, N, dtype, tol):
     torch.cuda.synchronize()
     assert got.shape == (N, P) and torch.isfinite(got).all()
     assert float((got - ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(None, 1e-4), ("bfloat16", 5e-2)])
+def test_loglikes_kernel_ragged_tiles(cuda_device, dtype, tol):
+    """N not a multiple of the kernel's 128-row tile, P not a multiple
+    of its 8-pdf tile, K not a multiple of its 8-component chunk, and a
+    pdf whose components are all padding (-inf, as logsumexp gives)."""
+    rng = np.random.default_rng(7)
+    P, K, D, N = 21, 12, 39, 333
+    g, miv, iv = _model(rng, P, K, D, cuda_device)
+    g[4] = -float("inf")
+    miv[4] = 0.0
+    iv[4] = 0.0
+    x = torch.as_tensor(rng.standard_normal((N, D)).astype(np.float32),
+                        device=cuda_device)
+    got = loglikes_cuda(g, miv, iv, x, compute_dtype=dtype)
+    ref = loglikes_plain(g, miv, iv, x, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert got.shape == (N, P)
+    assert bool((got[:, 4] == -float("inf")).all())
+    real = [p for p in range(P) if p != 4]
+    assert torch.isfinite(got[:, real]).all()
+    assert float((got[:, real] - ref[:, real]).abs().max()) <= tol
 
 
 def _digit_graphs(seqs):
@@ -293,7 +316,8 @@ def _fold_case(case, rng, device):
         heavy=(5, 97, 16, 50, 32, 12, 0), partial=(4, 64, 13, 40, 20, 10, 2),
         absent=(3, 45, 13, 30, 8, 7, 0), zero=(3, 40, 16, 30, 16, 8, 0),
         k13_d13=(3, 61, 13, 35, 13, 9, 1), k45_d80=(2, 37, 80, 25, 45, 6, 4),
-        t_ragged=(3, 101, 23, 33, 24, 11, 0),
+        t_ragged=(3, 101, 23, 33, 24, 11, 0), k200_d80=(2, 37, 80, 25, 200, 6, 4),
+        k400_d80=(2, 37, 80, 25, 400, 6, 4), k2500_d13=(2, 29, 13, 9, 2500, 5, 3),
     )[case]
     args = _fold_problem(rng, B, T, D, P, K, S, pad, device)
     g, miv, iv, x, pid, w, sp = args
@@ -314,16 +338,27 @@ def _fold_case(case, rng, device):
 
 
 @pytest.mark.parametrize("case", ["heavy", "partial", "absent", "zero", "k13_d13",
-                                  "k45_d80", "t_ragged"])
+                                  "k45_d80", "t_ragged", "k200_d80", "k400_d80",
+                                  "k2500_d13"])
 def test_stats_fold_kernel_cases(cuda_device, case):
     """The fold's load-imbalance path (one pdf with most frames), a pdf
     on a state of only some utterances, w > 0 frames of absent pdfs,
     all frames weighted 0, K not a multiple of 32 at D 13 and 80, T not
-    a multiple of any chunk: within 2e-4 of accumulate_am_stats_local,
+    a multiple of any chunk, K = 200 at D = 80 (beyond the first port's
+    limit), and K = 400 at D = 80 and 2,500 at D = 13, whose model rows
+    the score launch stages in two chunks of components (``score_plan``):
+    one fold launch each, within 2e-4 of accumulate_am_stats_local,
     bit-identical on a rerun."""
+    from khg_tpu_torch import kernels
+    from khg_tpu_torch.stats.fold_kernel import score_plan
+
     rng = np.random.default_rng(len(case) * 7 + 3)
     B, S, K, args = _fold_case(case, rng, cuda_device)
+    before = kernels.LAUNCHES["stats_fold"]
     got = accumulate_am_stats_fold(*args)
+    _chs, kc, _in_smem = score_plan(K, args[1].shape[2])
+    assert (kc < K) == (case in ("k400_d80", "k2500_d13"))
+    assert kernels.LAUNCHES["stats_fold"] == before + 1
     again = accumulate_am_stats_fold(*args)
     ref = accumulate_am_stats_local(*args)
     torch.cuda.synchronize()
@@ -365,10 +400,14 @@ def _random_arcs(rng, B, S, M, P, device):
         np.zeros((B, S, M), np.float32), init, final)])
 
 
-@pytest.mark.parametrize("S,M", [(37, 1), (100, 3), (300, 8), (45, 5)])
+@pytest.mark.parametrize("S,M", [(37, 1), (100, 3), (300, 8), (45, 5), (5000, 4),
+                                 (64, 130), (300, 200), (30000, 2)])
 def test_viterbi_kernel(cuda_device, S, M):
     """Costs bit-equal and tids equal to the eager DP, with a zero-frame
-    utterance (3) and one with no final state (2, failed)."""
+    utterance (3) and one with no final state (2, failed); on the
+    shared-memory kernel and on the generic one (tables beyond shared
+    memory at S = 5,000; int16 backpointers at M = 130 and 200; alpha in
+    global memory at S = 30,000)."""
     rng = np.random.default_rng(S * 10 + M)
     B, T, P = 5, 80, 29
     graphs = _random_arcs(rng, B, S, M, P, cuda_device)

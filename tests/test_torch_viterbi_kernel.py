@@ -11,8 +11,8 @@ from khg_tpu.align.pallas_viterbi import viterbi_align_batch_pallas
 from khg_tpu_torch.align.viterbi import viterbi_align_batch
 from khg_tpu_torch.align.viterbi_kernel import (
     viterbi_cuda,
-    viterbi_kernel_fits,
     viterbi_plain,
+    viterbi_plan,
 )
 from khg_tpu_torch.utils.convert import batched_graphs_to_torch
 from tests.test_align import setup  # noqa: F401
@@ -68,5 +68,12 @@ def test_kernel_wrapper_rejects_cpu_tensors_and_wide_tables(setup):  # noqa: F81
     _graphs, arrays, ll, nf, _ = _batch(setup, [12], _words(lp, ["YES"]))
     with pytest.raises(ValueError):
         viterbi_cuda(*_port_args(arrays, ll, nf), 0.5)
-    assert viterbi_kernel_fits(256, 4) and viterbi_kernel_fits(1000, 16)
-    assert not viterbi_kernel_fits(64, 128) and not viterbi_kernel_fits(8000, 4)
+    # every (S, M) has a kernel: which one, its backpointers, where alpha lives
+    assert viterbi_plan(256, 4) == ("shared", torch.int8, "shared")
+    assert viterbi_plan(1000, 16) == ("shared", torch.int8, "shared")
+    assert viterbi_plan(8000, 4) == ("generic", torch.int8, "shared")
+    assert viterbi_plan(64, 128) == ("generic", torch.int16, "shared")
+    assert viterbi_plan(64, 200) == ("generic", torch.int16, "shared")
+    assert viterbi_plan(50, 40000) == ("generic", torch.int32, "shared")
+    assert viterbi_plan(29024, 4) == ("generic", torch.int8, "shared")
+    assert viterbi_plan(29025, 2) == ("generic", torch.int8, "global")

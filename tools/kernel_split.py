@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Split the card time of the banded Viterbi kernel (A), of the banded
 forward-backward kernels (D forward, E backward) and of the stats fold
-(F) into their parts.
+(F) into their parts, and time the non-banded Viterbi kernel's (G) two
+kernels on one batch.
 
-    python3 tools/kernel_split.py [--src DIR] [--design parent|compiled] [--kernels A,D,E,F]
+    python3 tools/kernel_split.py [--src DIR] [--design parent|compiled] [--kernels A,D,E,F,G]
                                   [--out FILE]
 
 DIR holds the ``banded_viterbi.cu`` and ``banded_fb.cu`` to split
@@ -44,6 +45,11 @@ F (compiled design only): the device time of each of its five launches
    dots, the model rows' loads, the per-frame sums, the posterior and
    row writes, the segment sums, the zero rows and the fold's frame
    loop, each = the launch less the launch without it.
+G (compiled design only): the shared-memory kernel and the generic one
+   (the same source with the launcher's choice patched to the generic
+   kernel) on chip_smoke.py's kernel G check batch (B=256, T=512,
+   S=256, M=4), costs and tids compared to the bit, timed in turns,
+   beside the batch's serial frame chain (chip_smoke.serial_bound).
 
 Prints one JSON object (and writes it to FILE, default
 chiprun_out/kernel_split.json).  Needs one NVIDIA card and nvcc.
@@ -189,10 +195,10 @@ def timed_in_turns(calls, reps: int = 10):
 # F's variants (compiled design): score and fold each timed alone
 _F_VARIANTS = {
     "whole": [],
-    "no_dots": [("    score_dots<false>(dot, xr, mr, D);\n            score_dots<true>(dot, xr, mr + D, D);",
+    "no_dots": [("    score_dots<false>(dot, xr, mr, D);\n                score_dots<true>(dot, xr, mr + D, D);",
                  "")],
-    "no_model": [("    stage_model(m_s, gconsts, miv, iv, pdf_s[0], K, D);", ""),
-                 ("            stage_model(m_s, gconsts, miv, iv, pdf, K, D);", "")],
+    "no_model": [("    stage_model(m_s, gconsts, miv, iv, pdf_s[0], 0, min(kc, K), K, D);", ""),
+                 ("                stage_model(m_s, gconsts, miv, iv, pdf, k0, nk, K, D);", "")],
     "no_z_loop": [("for (int k = 0; k < K; ++k) z += expf(r[k] - mx);", "z = (float)K;")],
     "no_writes": [("for (int j = wid; j < nc; j += NW) {\n        float* pr = f.post",
                    "for (int j = wid; j < (nc & 0); j += NW) {\n        float* pr = f.post")],
@@ -202,6 +208,57 @@ _F_VARIANTS = {
     "no_frame_loop": [("for (int j = 0; j < nc;) {\n                if ((starts >> j) & 1u) {",
                        "for (int j = 0; j < (nc & 0);) {\n                if ((starts >> j) & 1u) {")],
 }
+
+
+# G's variants: the launcher's choice of kernel
+_G_VARIANTS = {
+    "shared": [],
+    "generic": [("    if (M >= 128 || smem > khg::SMEM_LIMIT) {", "    if (true) {")],
+}
+
+
+def viterbi_kernels(chip_smoke, setup, src: Path, build: Path):
+    """G's shared-memory and generic kernels on chip_smoke.py's check
+    batch: bit-equal outputs, times in turns, the serial bound."""
+    import torch
+
+    from khg_tpu_torch import kernels
+
+    libs = build_variants(src / "viterbi.cu", build, _G_VARIANTS, "compiled_G")
+    g, ll, nf, T, P = chip_smoke.viterbi_batch(setup)
+    B, S, M = g.in_src.shape
+    stream = kernels.stream_handle(ll.device)
+    outs = {}
+
+    def call(name, lib):
+        bp = torch.empty((B, T, S), dtype=torch.int8, device="cuda")
+        tids = torch.empty((B, T), dtype=torch.int32, device="cuda")
+        cost = torch.empty((B,), dtype=torch.float32, device="cuda")
+        outs[name] = (tids, cost)
+
+        def run():
+            err = lib.launch_viterbi(
+                g.in_src.data_ptr(), g.in_pdf.data_ptr(), g.in_cost.data_ptr(),
+                g.in_tid.data_ptr(), g.init_cost.data_ptr(), g.final_cost.data_ptr(),
+                ll.data_ptr(), nf.data_ptr(), bp.data_ptr(), None, tids.data_ptr(),
+                cost.data_ptr(), B, S, M, T, P, 0.1, stream)
+            if err:
+                raise RuntimeError(f"launch failed: {err}")
+        return run
+
+    calls = {k: call(k, v) for k, v in libs.items()}
+    for run in calls.values():
+        run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(outs["shared"], outs["generic"])):
+        raise RuntimeError("G: the generic kernel's costs or tids differ from the shared one's")
+    ms = timed_in_turns(calls)
+    mf = int(nf.max())
+    serial_ms, chain = chip_smoke.serial_bound(mf, M, S)
+    return dict(shape=dict(B=B, T=T, S=S, M=M, P=P, frames=int(nf.sum()), max_frames=mf),
+                bit_equal=True, variant_ms=ms,
+                us_per_frame={k: v / mf * 1e3 for k, v in ms.items()},
+                serial_bound_ms=serial_ms, serial_chain=chain)
 
 
 def fold_split(chip_smoke, src: Path, build: Path):
@@ -281,7 +338,7 @@ def main() -> int:
                     help="which kernels the sources hold: the parent's or the compiled paths")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "kernel_split.json")
     ap.add_argument("--kernels", default="A,D,E,F",
-                    help="which kernels to split (F only with --design compiled)")
+                    help="which kernels to split (F and G only with --design compiled)")
     args = ap.parse_args()
     want = set(args.kernels.split(","))
 
@@ -431,6 +488,8 @@ def main() -> int:
                            us_per_frame=ms["whole"] / int(nf.max()) * 1e3)
     if args.design == "compiled" and "F" in want:
         result["F"] = fold_split(chip_smoke, args.src, build)
+    if args.design == "compiled" and "G" in want:
+        result["G"] = viterbi_kernels(chip_smoke, setup, args.src, build)
     result["latency_ns"] = chip_smoke.step_latencies()
     line = json.dumps(result)
     args.out.parent.mkdir(parents=True, exist_ok=True)
