@@ -624,8 +624,33 @@ def check_loglikes(P, results):
         f"{library_ms:.3f}, bound {b_ms:.4f} {b_by}, {b_ms / ms:.1%} of it)")
 
 
+def windowed_frames(padded, cfg, T):
+    """(B, T, frame_len) frames of the padded wave after DC removal,
+    pre-emphasis and the window (in the padded wave's type): what a real
+    FFT of the frontend takes."""
+    import torch
+
+    from khg_tpu_torch.features.fbank import _window
+
+    idx = (torch.arange(T, device=padded.device)[:, None] * cfg.frame_shift
+           + torch.arange(cfg.frame_length, device=padded.device)[None, :])
+    x = padded[:, idx]
+    if cfg.remove_dc_offset:
+        x = x - x.mean(-1, keepdim=True)
+    prev = torch.cat([x[..., :1], x[..., :-1]], -1)
+    y = x - cfg.preemph_coeff * prev
+    return y * torch.as_tensor(_window(cfg), device=padded.device, dtype=padded.dtype)
+
+
 def check_fbank(waves_np, cfg, results):
-    """Kernel C on 256 rows of 4.2 s at 8 kHz."""
+    """Kernel C on 256 rows of 4.2 s at 8 kHz.  Besides the kernel, times
+    the reflect-pad gather that makes its input and the whole
+    ``fbank_fused`` (gather + kernel).  For information, a composition
+    of PyTorch calls on the same frames (DC removal, pre-emphasis and
+    window outside the timing; ``torch.fft.rfft``, the power, the mel
+    product, the log) in f32 (timed) and in f64 (the exact function, to
+    f64 rounding), each held against the plain version: how far a real
+    FFT of these frames lands from the dense f32 formulation."""
     import numpy as np
     import torch
 
@@ -633,6 +658,7 @@ def check_fbank(waves_np, cfg, results):
     from khg_tpu_torch.features.fbank_kernel import (
         _padded_wave,
         fbank_cuda,
+        fbank_fused,
         fbank_plain,
     )
 
@@ -655,15 +681,29 @@ def check_fbank(waves_np, cfg, results):
         raise AssertionError(f"kernel C: max abs err {err} (energy {err_e}) > 1e-3")
     ms = time_ms(lambda: fbank_cuda(padded, cfg, T), reps=10)
     plain_ms = time_ms(lambda: fbank_plain(padded, cfg, T), reps=10)
+    gather_ms = time_ms(lambda: _padded_wave(waves, cfg, T), reps=10)
+    fused_ms = time_ms(lambda: fbank_fused(waves, cfg), reps=10)
     B, F, M = 256, cfg.fft_size // 2 + 1, cfg.num_mel_bins
     flen, nfft = cfg.frame_length, cfg.fft_size
+    mel_t = torch.as_tensor(np.ascontiguousarray(mel_banks(cfg).T), device="cuda")
+
+    def composition(y):
+        spec = torch.view_as_real(torch.fft.rfft(y, n=nfft)).square().sum(-1)
+        return torch.log(torch.clamp(spec @ mel_t.to(y.dtype), min=1.1754944e-38))
+
+    y32 = windowed_frames(padded, cfg, T)
+    comp_err = float((composition(y32) - fp).abs().max())
+    comp_ms = time_ms(lambda: composition(y32), reps=10)
+    del y32
+    exact = composition(windowed_frames(padded.double(), cfg, T))
+    plain_vs_exact = (fp.double() - exact).abs().amax((0, 1))
     nbytes = B * n * 4 + B * T * (M + 1) * 4
     # per frame, both counts: power (3F), the mel product over the
     # filters' nonzero weights, the log (M).  The function's floor takes
     # the spectrum by a real FFT (~2.5 N log2 N flops) after DC removal,
     # pre-emphasis, window and energy (7 flen); the kernel's design
-    # takes it by two dense (flen, F) products with those folded in,
-    # plus the energy sums (3 flen).
+    # takes it by two dense (flen, F) products with those folded in, plus
+    # the energy sums (3 flen).
     nnz = int(np.count_nonzero(mel_banks(cfg)))
     tail = 3 * F + 2 * nnz + M
     fft_ops = B * T * (2.5 * nfft * math.log2(nfft) + 7 * flen + tail)
@@ -673,15 +713,25 @@ def check_fbank(waves_np, cfg, results):
     results["fbank"] = dict(
         name="fbank", route="cuda", source="khg_tpu_torch/csrc/fbank.cu",
         replaces="khg_tpu/features/pallas_fbank.py:93",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        max_abs_err=max(err, err_e), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, feats_max_abs_err=err,
+        energy_max_abs_err=err_e, gather_ms=gather_ms, fbank_fused_ms=fused_ms,
+        rfft_composition=dict(
+            calls="torch.fft.rfft, square, sum, matmul, clamp, log", ms=comp_ms,
+            max_abs_err=comp_err,
+            f64_max_abs_err=float(plain_vs_exact.max()),
+            f64_max_abs_err_per_filter=plain_vs_exact.tolist()),
         dense_dft_bound_ms=dft_ms, dense_dft_bound_by=dft_by,
-        shape=dict(B=B, T=T, frame_len=flen, F=F, M=M, mel_nonzeros=nnz),
+        shape=dict(B=B, T=T, frame_len=flen, N=nfft, F=F, M=M, mel_nonzeros=nnz),
         tolerance="log-mel and log-energy 1e-3 (max abs)",
     )
-    log(f"kernel C fbank: B={B} T={T} F={F} M={M}: err {err:.2e} (energy "
-        f"{err_e:.2e}); {ms:.3f} ms (plain {plain_ms:.3f}, bound "
-        f"{b_ms:.4f} {b_by}; with the dense DFT {dft_ms:.4f} {dft_by})")
+    log(f"kernel C fbank: B={B} T={T} N={nfft} F={F} M={M}: err {err:.2e} (energy "
+        f"{err_e:.2e}); {ms:.4f} ms (plain {plain_ms:.3f}, bound {b_ms:.4f} "
+        f"{b_by}, {b_ms / ms:.1%} of it; with the dense DFT {dft_ms:.4f} {dft_by}); "
+        f"gather {gather_ms:.4f} ms, fbank_fused {fused_ms:.4f} ms; rfft "
+        f"composition (6 calls) {comp_ms:.4f} ms, err {comp_err:.2e} (in f64: "
+        f"{float(plain_vs_exact.max()):.2e}; per mel filter "
+        f"{[round(float(v), 5) for v in plain_vs_exact]})")
 
 
 def viterbi_batch(setup):
@@ -715,9 +765,11 @@ def viterbi_batch(setup):
 
 
 def check_viterbi(setup, results):
-    """Kernel G on its check batch (``viterbi_batch``), then its generic
-    kernel beyond shared memory."""
-    from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain
+    """Kernel G on its check batch (``viterbi_batch``, the compiled
+    kernel), then on random arc tables of shapes that take the generic
+    kernel: two that the first port's shared-memory kernel took, and one
+    beyond any block's shared memory."""
+    from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain, viterbi_plan
 
     g, ll, nf, T, P = viterbi_batch(setup)
     B, S, M = g.in_src.shape
@@ -734,7 +786,14 @@ def check_viterbi(setup, results):
         nbytes, ops, int(nf.max()), M, S,
         dict(B=B, T=T, S=S, M=M, P=P, frames=steps, max_frames=int(nf.max())),
     )
-    check_viterbi_generic(results)
+    plan = viterbi_plan(S, M)
+    if plan[0] != "compiled":
+        raise AssertionError(f"kernel G: the check batch took {plan}, not the compiled kernel")
+    results["viterbi"]["plan"] = [plan[0], str(plan[1]), plan[2]]
+    for key, B2, S2, M2, seed in (("generic_s2048_m4", 64, 2048, 4, 5),
+                                  ("generic_s256_m16", 64, 256, 16, 6),
+                                  ("generic", 8, 8000, 4, 4)):
+        check_viterbi_generic(results, key, B2, S2, M2, seed)
 
 
 def random_arc_tables(rng, B, S, M, P):
@@ -766,17 +825,16 @@ def random_arc_tables(rng, B, S, M, P):
         np.zeros((B, S, M), np.float32), init, final)])
 
 
-def check_viterbi_generic(results):
-    """Kernel G's generic path (arc tables beyond a block's shared
-    memory) at B=8, S=8,000, M=4, T=200 on random tables: bit-equal to
-    the plain version, timed, and bounded by its serial frame chain."""
+def check_viterbi_generic(results, key, B, S, M, seed, T=200, P=50):
+    """Kernel G's generic kernel at (B, S, M) on random tables (from
+    ``seed``) of T=200 frames: bit-equal to the plain version, timed, and bounded by its
+    serial frame chain; kept as results["viterbi"][key]."""
     import numpy as np
     import torch
 
     from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain, viterbi_plan
 
-    B, S, M, T, P = 8, 8000, 4, 200, 50
-    rng = np.random.default_rng(4)
+    rng = np.random.default_rng(seed)
     g = random_arc_tables(rng, B, S, M, P)
     ll = torch.as_tensor((-20 + 5 * rng.standard_normal((B, T, P))).astype(np.float32),
                          device=DEVICE)
@@ -786,18 +844,19 @@ def check_viterbi_generic(results):
     tp, cp = viterbi_plain(g, ll, nf, 0.1)
     torch.cuda.synchronize()
     if plan[0] != "generic" or not torch.equal(ck, cp) or not torch.equal(tk, tp):
-        raise AssertionError(f"kernel G generic {plan}: costs or tids differ from the "
-                             f"plain version (max diff {(ck - cp).abs().max().item()})")
+        raise AssertionError(f"kernel G generic {plan} at S={S} M={M}: costs or tids "
+                             f"differ from the plain version (max diff "
+                             f"{(ck - cp).abs().max().item()})")
     ms = time_ms(lambda: viterbi_cuda(g, ll, nf, 0.1), reps=5)
     plain_ms = time_ms(lambda: viterbi_plain(g, ll, nf, 0.1), reps=1)
     frames = int(nf.max())
     serial_ms, chain = serial_bound(frames, M, S)
-    results["viterbi"]["generic"] = dict(
+    results["viterbi"][key] = dict(
         B=B, S=S, M=M, T=T, P=P, max_frames=frames, plan=[plan[0], str(plan[1]), plan[2]],
         ms=ms, plain_ms=plain_ms, us_per_frame=ms / frames * 1e3,
         serial_bound_ms=serial_ms, serial_chain=chain,
     )
-    log(f"kernel G viterbi generic: B={B} T={T} S={S} M={M} P={P} ({plan[0]}, "
+    log(f"kernel G viterbi {key}: B={B} T={T} S={S} M={M} P={P} ({plan[0]}, "
         f"{plan[1]} backpointers, alpha in {plan[2]} memory): bit-equal; {ms:.3f} ms, "
         f"{ms / frames * 1e3:.3f} us per frame of the longest utterance (plain "
         f"{plain_ms:.1f} ms, serial bound {serial_ms:.4f} ms: {chain})")

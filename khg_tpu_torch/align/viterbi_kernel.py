@@ -10,13 +10,13 @@ frame t the DP updates all (state, incoming-arc) pairs at once:
     alpha'[b, s]   = min(min_m score[b, s, m], BIG);  bp = first argmin_m
 
 followed by a first-match argmin over the end states and a backtrace.
-The card takes every (S, M): a shared-memory kernel where the tables
-fit a block, a generic one (tables in global memory, wider
-backpointers) otherwise, picked by shape (``viterbi_plan``).  The plain
-version and both kernels perform the same f32 operations in the
-same order, so their costs are bit-equal and their tids equal.  Both
-lookups are direct gathers: khg_tpu's one-hot selects exist only
-because dynamic gathers inside a TPU scan serialise.
+The card takes every (S, M): a compiled kernel (a state's M <= 8 arc
+slots in registers, S <= 512) and a generic one (tables in global
+memory, wider backpointers) for the rest, picked by shape
+(``viterbi_plan``).  The plain version and both kernels perform the
+same f32 operations in the same order, so their costs are bit-equal and
+their tids equal.  Both lookups are direct gathers: khg_tpu's one-hot
+selects exist only because dynamic gathers inside a TPU scan serialise.
 """
 
 from __future__ import annotations
@@ -29,26 +29,36 @@ from khg_tpu_torch.align.banded_kernel import _SMEM_LIMIT, check_tensors
 from khg_tpu_torch.align.packed import BIG
 
 
-def _block_threads(S: int) -> int:
-    return min(1024, -(-S // 32) * 32)
+# csrc/viterbi.cu's compiled kernel: arc slots and states it takes, and
+# its backpointer chunk (frames)
+_FAST_MAX_M = 8
+_FAST_MAX_S = 512
+_CHUNK = 32
+
+
+def _padded_states(S: int) -> int:
+    return -(-S // 16) * 16
 
 
 def viterbi_smem_bytes(S: int, M: int) -> int:
-    """Shared memory of one block of csrc/viterbi.cu: the arc tables
-    (source, pdf, cost), two alpha buffers and the argmin scratch."""
-    return (3 * S * M + 2 * S + 2 * _block_threads(S)) * 4
+    """Shared memory of one block of csrc/viterbi.cu's compiled kernel:
+    two alpha buffers of 512 floats, the staged backpointers (2 chunks
+    of rows of S rounded up to 16 bytes), the source table, the chase's
+    path and the argmin scratch."""
+    return (2 * _FAST_MAX_S * 4 + 2 * _CHUNK * _padded_states(S) + S * M * 4
+            + 4 * _CHUNK * 4 + 64 * 4)
 
 
 def viterbi_plan(S: int, M: int) -> Tuple[str, torch.dtype, str]:
     """Which kernel of csrc/viterbi.cu takes S states of M incoming arcs
     (mirrors launch_viterbi): (kernel, backpointer dtype, where alpha
-    lives).  The shared-memory kernel where M < 128 (int8 backpointers)
-    and a block's tables fit; the generic kernel otherwise, with int8,
-    int16 or int32 backpointers for M < 128, M < 32,768 or beyond, and
-    alpha in shared memory while its two rows fit (8 S bytes beside the
-    argmin scratch), in a (B, 2, S) global scratch beyond."""
-    if M < 128 and viterbi_smem_bytes(S, M) <= _SMEM_LIMIT:
-        return "shared", torch.int8, "shared"
+    lives).  The compiled kernel where M <= 8 and S <= 512 (int8
+    backpointers); the generic kernel otherwise, with int8, int16 or
+    int32 backpointers for M < 128, M < 32,768 or beyond, and alpha in
+    shared memory while its two rows fit (8 S bytes beside the argmin
+    scratch), in a (B, 2, S) global scratch beyond."""
+    if M <= _FAST_MAX_M and S <= _FAST_MAX_S:
+        return "compiled", torch.int8, "shared"
     bp = torch.int8 if M < 128 else torch.int16 if M < 32768 else torch.int32
     return "generic", bp, "shared" if 8 * S <= _SMEM_LIMIT - 256 else "global"
 
@@ -123,8 +133,9 @@ def viterbi_cuda(
     ])
     if M < 1:
         raise ValueError("viterbi_cuda: states need at least one arc slot")
-    _kernel, bp_dtype, alpha_at = viterbi_plan(S, M)
-    bp = torch.empty((B, T, S), dtype=bp_dtype, device=dev)
+    kernel, bp_dtype, alpha_at = viterbi_plan(S, M)
+    width = _padded_states(S) if kernel == "compiled" else S
+    bp = torch.empty((B, T, width), dtype=bp_dtype, device=dev)
     alpha_ws = (torch.empty((B, 2, S), dtype=torch.float32, device=dev)
                 if alpha_at == "global" else None)
     tids = torch.empty((B, T), dtype=torch.int32, device=dev)

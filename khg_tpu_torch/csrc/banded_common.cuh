@@ -1,7 +1,8 @@
-// Shared pieces of the banded Viterbi (banded_viterbi.cu) and banded
-// forward-backward (banded_fb.cu) kernels: the bound of their compiled
-// paths, asynchronous global -> shared copies for the prefetch rings,
-// and the block's first-match argmin.
+// Shared pieces of the banded Viterbi (banded_viterbi.cu), banded
+// forward-backward (banded_fb.cu) and incoming-arc Viterbi (viterbi.cu)
+// kernels: the bound of their compiled paths, asynchronous global ->
+// shared copies for the prefetch rings, the block's first-match argmin,
+// and the compiled Viterbi paths' backpointer chunks and backtrace.
 
 #pragma once
 
@@ -72,6 +73,71 @@ __device__ __forceinline__ void block_argmin(float& v, int& i, float* red_v,
     v = red_v[0];
     i = red_i[0];
     for (int w = 1; w < (int)(blockDim.x >> 5); ++w) take_min(v, i, red_v[w], red_i[w]);
+}
+
+// The compiled Viterbi paths stage int8 backpointers in shared memory,
+// [2 * BP_CHUNK][Sp] (a row of Sp bytes a frame, Sp a multiple of 16),
+// and write each finished chunk of BP_CHUNK frames out to a (T, Sp)
+// global scratch with 16-byte stores, except the last two, which never
+// leave shared memory.
+constexpr int BP_CHUNK = 32;
+
+// After frame t's barrier, of nf frames: chunk t / BP_CHUNK goes out
+// once complete, unless it is one of the last two.
+__device__ __forceinline__ void flush_chunk(int t, int nf, const int8_t* stage,
+                                            int8_t* gbp, int Sp) {
+    const int K = (nf + BP_CHUNK - 1) / BP_CHUNK;
+    const int k = t / BP_CHUNK;
+    if (t % BP_CHUNK == BP_CHUNK - 1 && k < K - 2) {
+        const uint4* from = reinterpret_cast<const uint4*>(stage + (k & 1) * BP_CHUNK * Sp);
+        uint4* to = reinterpret_cast<uint4*>(gbp + (size_t)k * BP_CHUNK * Sp);
+        for (int i = threadIdx.x; i < BP_CHUNK * Sp / 16; i += blockDim.x) to[i] = from[i];
+    }
+}
+
+// The backtrace from end state v over nf frames, chunk by chunk from the
+// last; path [2][2][BP_CHUNK] holds a chunk's states and backpointers.
+// Thread 0 chases through the staged chunk: at frame tt, state v and its
+// backpointer p; back(v, p) is the state a frame earlier.  Meanwhile the
+// threads from the second warp on (all but thread 0 in a one-warp block)
+// write the later chunk's tids, tid(v, p) into tb, and load the
+// next-earlier chunk back from gbp into the half that chunk held.
+template <typename Back, typename Tid>
+__device__ __forceinline__ void backtrace_chunks(int v, int nf, int8_t* stage,
+                                                 const int8_t* gbp, int Sp, int* path,
+                                                 int32_t* tb, Back back, Tid tid) {
+    const int tx = threadIdx.x;
+    const int nt = blockDim.x;
+    const int K = (nf + BP_CHUNK - 1) / BP_CHUNK;
+    auto write_tids = [&](int k, int from, int by) {
+        const int lo = k * BP_CHUNK;
+        const int n = min(nf - lo, BP_CHUNK);
+        const int* pk = path + (k & 1) * 2 * BP_CHUNK;
+        for (int i = from; i < n; i += by) tb[lo + i] = tid(pk[i], pk[BP_CHUNK + i]);
+    };
+    const int h0 = nt > 32 ? 32 : 1;  // the first thread that does not chase
+    for (int k = K - 1; k >= 0; --k) {
+        if (tx == 0) {
+            const int lo = k * BP_CHUNK;
+            int* pk = path + (k & 1) * 2 * BP_CHUNK;
+            for (int tt = min(nf, lo + BP_CHUNK) - 1; tt >= lo; --tt) {
+                const int p = stage[(tt & (2 * BP_CHUNK - 1)) * Sp + v];
+                pk[tt - lo] = v;
+                pk[BP_CHUNK + tt - lo] = p;
+                v = back(v, p);
+            }
+        } else if (tx >= h0) {
+            if (k + 1 < K) write_tids(k + 1, tx - h0, nt - h0);
+            // chunk k - 1 into the half chunk k + 1 held, unless resident
+            if (k >= 1 && k - 1 < K - 2) {
+                const uint4* from = reinterpret_cast<const uint4*>(gbp + (size_t)(k - 1) * BP_CHUNK * Sp);
+                uint4* to = reinterpret_cast<uint4*>(stage + ((k - 1) & 1) * BP_CHUNK * Sp);
+                for (int i = tx - h0; i < BP_CHUNK * Sp / 16; i += nt - h0) to[i] = from[i];
+            }
+        }
+        __syncthreads();
+    }
+    if (K > 0) write_tids(0, tx, nt);
 }
 
 }  // namespace khg

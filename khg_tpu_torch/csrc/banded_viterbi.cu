@@ -63,7 +63,7 @@
 namespace {
 
 constexpr int FAST_S = khg::FAST_MAX_S;
-constexpr int CH = 32;  // frames per backpointer chunk
+constexpr int CH = khg::BP_CHUNK;  // frames per backpointer chunk
 
 __host__ __device__ int padded_states(int S) { return (S + 15) / 16 * 16; }
 
@@ -154,7 +154,6 @@ __global__ void __launch_bounds__(FAST_S) banded_viterbi_fast(
     if (live && nf > 1) ac1 = llb[P];
     __syncthreads();
 
-    const int K = (nf + CH - 1) / CH;  // backpointer chunks
     int8_t* gbp = bp + (size_t)b * T * Sp;
     auto step = [&](int t, const float* cur, float* nxt, float& acr) {
         const float ac = acr;
@@ -166,13 +165,7 @@ __global__ void __launch_bounds__(FAST_S) banded_viterbi_fast(
             stage[(t & (2 * CH - 1)) * Sp + s] = (int8_t)arg;
         }
         __syncthreads();
-        // a finished chunk goes out unless it is one of the last two
-        const int k = t / CH;
-        if (t % CH == CH - 1 && k < K - 2) {
-            const uint4* from = reinterpret_cast<const uint4*>(stage + (k & 1) * CH * Sp);
-            uint4* to = reinterpret_cast<uint4*>(gbp + (size_t)k * CH * Sp);
-            for (int i = tx; i < CH * Sp / 16; i += nt) to[i] = from[i];
-        }
+        khg::flush_chunk(t, nf, stage, gbp, Sp);
     };
     int t = 0;
     for (; t + 1 < nf; t += 2) {
@@ -197,40 +190,16 @@ __global__ void __launch_bounds__(FAST_S) banded_viterbi_fast(
     for (int i = nf + tx; i < T; i += nt) tb[i] = 0;
     if (tx == 0) total_cost[b] = bv;
 
-    // backtrace, chunk by chunk from the last: path[k & 1] holds chunk
-    // k's states and planes
+    // backtrace: a frame's arc is (state, plane), and a plane steps back
+    // by its offset
     const int32_t* ptb = plane_tid + (size_t)b * DK * S;
-    auto write_tids = [&](int k, int from, int by) {
-        const int lo = k * CH;
-        const int n = min(nf - lo, CH);
-        const int* pk = path + (k & 1) * 2 * CH;
-        for (int i = from; i < n; i += by) tb[lo + i] = ptb[(size_t)pk[CH + i] * S + pk[i]];
-    };
-    const int h0 = nt > 32 ? 32 : 1;  // the first thread that does not chase
-    int v = bi;
-    for (int k = K - 1; k >= 0; --k) {
-        if (tx == 0) {
-            const int lo = k * CH;
-            int* pk = path + (k & 1) * 2 * CH;
-            for (int tt = min(nf, lo + CH) - 1; tt >= lo; --tt) {
-                const int p = stage[(tt & (2 * CH - 1)) * Sp + v];
-                pk[tt - lo] = v;
-                pk[CH + tt - lo] = p;
-                v -= offs[p];
-                if (v < 0) v += S;
-            }
-        } else if (tx >= h0) {
-            if (k + 1 < K) write_tids(k + 1, tx - h0, nt - h0);
-            // chunk k - 1 into the half chunk k + 1 held, unless resident
-            if (k >= 1 && k - 1 < K - 2) {
-                const uint4* from = reinterpret_cast<const uint4*>(gbp + (size_t)(k - 1) * CH * Sp);
-                uint4* to = reinterpret_cast<uint4*>(stage + ((k - 1) & 1) * CH * Sp);
-                for (int i = tx - h0; i < CH * Sp / 16; i += nt - h0) to[i] = from[i];
-            }
-        }
-        __syncthreads();
-    }
-    if (K > 0) write_tids(0, tx, nt);
+    khg::backtrace_chunks(
+        bi, nf, stage, gbp, Sp, path, tb,
+        [&](int v, int p) {
+            v -= offs[p];
+            return v < 0 ? v + S : v;
+        },
+        [&](int v, int p) { return ptb[(size_t)p * S + v]; });
 }
 
 __global__ void banded_viterbi_generic(

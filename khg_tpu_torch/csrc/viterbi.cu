@@ -18,27 +18,38 @@
 // barrier, a sweep over M arcs, then an nf-step pointer chase.  The
 // bytes (arc tables, the loglike entries read, backpointers) are small.
 //
-// Design: one block per utterance, threads over states.  The arc
-// tables (source, pdf, cost) stay in shared memory for the whole
-// utterance and alpha is double-buffered there (one barrier per frame).
-// The acoustic term is a direct gather from the frame's loglike row per
-// arc (the TPU kernel's one-hot GEMM select, and the state_pdf
-// shortcut, are not needed).  int8 backpointers go to a global (B, T, S)
-// scratch that one thread reads back for the backtrace.  Frames at or
+// Compiled path (M = 1..8 arc slots, S <= 512 states), the design of
+// the banded kernel's compiled path (banded_viterbi.cu): one block per
+// utterance, one thread per state.
+// - Each thread holds its M slots (source, cost, pdf) in registers for
+//   the whole utterance; M is a template parameter, so no padded slot
+//   is swept (a padded slot of cost BIG could win the first-match
+//   argmin among unreachable arcs and change a backpointer).
+// - The acoustic terms ll[b, t, pdf[m]] are loaded two frames ahead
+//   into registers: they do not depend on alpha, so no global latency
+//   lies on the frame chain.
+// - alpha is double-buffered at fixed shared offsets, the frame loop
+//   unrolled by two; one barrier per frame.
+// - int8 backpointers are staged in shared memory per chunk of CH
+//   frames and written out with 16-byte stores (rows padded to Sp
+//   bytes, S rounded up to 16); the last two chunks never leave shared
+//   memory.
+// - The final argmin is a shuffle tree with ties to the lowest state.
+//   In the backtrace thread 0 chases through the staged chunks (a
+//   shared read of the backpointer, then of the source table, per
+//   frame) while the other warps load the next-earlier chunk back and
+//   write the previous chunk's tids.
+// Every other shape (M > 8, or S > 512: the HCLG loop states of a dense
+// decode) takes the generic kernel: the same DP, one block per
+// utterance and threads over states, but the arc tables are read from
+// global memory through the read-only path on every frame, alpha is
+// double-buffered in shared memory while 2 S floats fit there and in a
+// (B, 2, S) global scratch beyond (one barrier per frame orders it
+// either way), and the backpointers are int8 for M < 128, int16 for
+// M < 32,768 and int32 beyond.  The choice is made from the shape alone
+// (viterbi_plan in align/viterbi_kernel.py mirrors it).  Frames at or
 // past nf are not run: the TPU kernel runs them and keeps alpha, which
-// is the same result.  Shared memory: 3 S M + 2 S + 2 nt words (see
-// viterbi_smem_bytes; align/viterbi_kernel.py mirrors it).
-//
-// Every other shape (M >= 128, or tables beyond a block's shared
-// memory: S > ~4,000 at M = 4, the HCLG loop states of a dense decode)
-// takes the generic kernel: the same DP, one block per utterance and
-// threads over states, but the arc tables are read from global memory
-// through the read-only path on every frame, alpha is double-buffered
-// in shared memory while 2 S floats fit there and in a (B, 2, S) global
-// scratch beyond (one barrier per frame orders it either way), and the
-// backpointers are int8 for M < 128, int16 for M < 32,768 and int32
-// beyond.  The choice is made from the shape alone (viterbi_plan in
-// align/viterbi_kernel.py mirrors it).
+// is the same result.
 //
 // Bitwise parity with the plain version (align/viterbi_kernel.py, the
 // eager DP): the same f32 operations in the same order, written with
@@ -62,12 +73,24 @@ int block_threads(int S)
     return nt > 1024 ? 1024 : nt;
 }
 
-size_t viterbi_smem_bytes(int S, int M, int nt)
-{
-    return (3 * (size_t)S * M + 2 * (size_t)S + 2 * (size_t)nt) * 4;
+constexpr int FAST_S = khg::FAST_MAX_S;
+constexpr int MAX_M = 8;  // arc slots compiled
+constexpr int CH = khg::BP_CHUNK;  // frames per backpointer chunk
+
+__host__ __device__ int padded_states(int S) { return (S + 15) / 16 * 16; }
+
+// Dynamic shared memory of a compiled-path block: alpha [2][FAST_S] f32
+// at fixed offsets, the staged backpointers [2 * CH][Sp] i8, the source
+// table [S][M] i32, the chase's path [2][2][CH] i32 and the argmin
+// scratch [2][32].  align/viterbi_kernel.py::viterbi_smem_bytes mirrors
+// it.
+size_t compiled_smem_bytes(int S, int M) {
+    return (size_t)2 * FAST_S * 4 + (size_t)2 * CH * padded_states(S)
+           + (size_t)S * M * 4 + 4 * CH * 4 + 64 * 4;
 }
 
-__global__ void viterbi_kernel(
+template <int M>
+__global__ void __launch_bounds__(FAST_S) viterbi_compiled(
     const int32_t* __restrict__ in_src,      // (B, S, M)
     const int32_t* __restrict__ in_pdf,      // (B, S, M)
     const float* __restrict__ in_cost,       // (B, S, M)
@@ -76,103 +99,117 @@ __global__ void viterbi_kernel(
     const float* __restrict__ final_cost,    // (B, S)
     const float* __restrict__ loglikes,      // (B, T, P)
     const int32_t* __restrict__ num_frames,  // (B,)
-    int8_t* __restrict__ bp,                 // (B, T, S) scratch
+    int8_t* __restrict__ bp,                 // (B, T, Sp) scratch
     int32_t* __restrict__ tids,              // (B, T) out
     float* __restrict__ total_cost,          // (B,) out
-    int S, int M, int T, int P, float scale)
+    int S, int T, int P, float scale)
 {
-    extern __shared__ float smem[];
-    const int SM = S * M;
-    float* cost_s = smem;                                    // S*M
-    int* src_s = reinterpret_cast<int*>(cost_s + SM);        // S*M
-    int* pdf_s = src_s + SM;                                 // S*M
-    float* alpha_a = reinterpret_cast<float*>(pdf_s + SM);   // S
-    float* alpha_b = alpha_a + S;                            // S
-    float* red_v = alpha_b + S;                              // blockDim
-    int* red_i = reinterpret_cast<int*>(red_v + blockDim.x); // blockDim
+    extern __shared__ __align__(16) unsigned char smem_fast[];
+    const int Sp = padded_states(S);
+    float* alpha0 = reinterpret_cast<float*>(smem_fast);          // [FAST_S]
+    float* alpha1 = alpha0 + FAST_S;                               // [FAST_S]
+    int8_t* stage = reinterpret_cast<int8_t*>(alpha1 + FAST_S);   // [2 * CH][Sp]
+    int* srcs = reinterpret_cast<int*>(stage + 2 * CH * Sp);       // [S][M]
+    int* path = srcs + S * M;                                      // [2][2][CH]
+    float* red_v = reinterpret_cast<float*>(path + 4 * CH);        // [32]
+    int* red_i = reinterpret_cast<int*>(red_v + 32);               // [32]
 
     const int b = blockIdx.x;
     const int tx = threadIdx.x;
     const int nt = blockDim.x;
+    const bool live = tx < S;
+    const int s = live ? tx : 0;
     int nf = num_frames[b];
     if (nf > T) nf = T;
     if (nf < 0) nf = 0;
 
-    const size_t tab = (size_t)b * SM;
-    for (int i = tx; i < SM; i += nt) {
-        cost_s[i] = in_cost[tab + i];
-        src_s[i] = in_src[tab + i];
-        pdf_s[i] = in_pdf[tab + i];
+    int src[M], pdf[M];
+    float cost[M];
+    const size_t row = ((size_t)b * S + s) * M;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+        src[m] = in_src[row + m];
+        pdf[m] = in_pdf[row + m];
+        cost[m] = in_cost[row + m];
+        if (live) srcs[s * M + m] = src[m];
     }
-    for (int s = tx; s < S; s += nt) alpha_a[s] = init_cost[(size_t)b * S + s];
+    const float fin = final_cost[(size_t)b * S + s];
+    const float* llb = loglikes + (size_t)b * T * P;
+    if (live) alpha0[s] = init_cost[(size_t)b * S + s];
+    // the acoustic terms of frames 0 and 1; each frame's registers then
+    // take the frame two on
+    float ac0[M], ac1[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+        ac0[m] = (live && nf > 0) ? llb[pdf[m]] : 0.f;
+        ac1[m] = (live && nf > 1) ? llb[(size_t)P + pdf[m]] : 0.f;
+    }
     __syncthreads();
 
-    const float* llb = loglikes + (size_t)b * T * P;
-    int8_t* bpb = bp + (size_t)b * T * S;
-    float* cur = alpha_a;
-    float* nxt = alpha_b;
-    for (int t = 0; t < nf; ++t) {
-        const float* llt = llb + (size_t)t * P;
-        for (int s = tx; s < S; s += nt) {
-            float best = INFINITY;
-            int arg = 0;
-            for (int m = 0; m < M; ++m) {
-                const int x = s * M + m;
-                const float c = __fsub_rn(
-                    __fadd_rn(cur[src_s[x]], cost_s[x]),
-                    __fmul_rn(scale, llt[pdf_s[x]]));
-                if (c < best) {  // strict: the first arc attaining the min
-                    best = c;
-                    arg = m;
-                }
+    int8_t* gbp = bp + (size_t)b * T * Sp;
+    auto step = [&](int t, const float* cur, float* nxt, float (&acr)[M]) {
+        float ac[M];
+#pragma unroll
+        for (int m = 0; m < M; ++m) ac[m] = acr[m];
+        if (live && t + 2 < nf) {
+            const float* llr = llb + (size_t)(t + 2) * P;
+#pragma unroll
+            for (int m = 0; m < M; ++m) acr[m] = llr[pdf[m]];
+        }
+        float best = INFINITY;
+        int arg = 0;
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+            const float c = __fsub_rn(__fadd_rn(cur[src[m]], cost[m]),
+                                      __fmul_rn(scale, ac[m]));
+            if (c < best) {  // strict: the first arc attaining the min
+                best = c;
+                arg = m;
             }
+        }
+        if (live) {
             nxt[s] = fminf(best, KHG_BIG);
-            bpb[(size_t)t * S + s] = (int8_t)arg;
+            stage[(t & (2 * CH - 1)) * Sp + s] = (int8_t)arg;
         }
         __syncthreads();
-        float* tmp = cur;
-        cur = nxt;
-        nxt = tmp;
+        khg::flush_chunk(t, nf, stage, gbp, Sp);
+    };
+    int t = 0;
+    for (; t + 1 < nf; t += 2) {
+        step(t, alpha0, alpha1, ac0);
+        step(t + 1, alpha1, alpha0, ac1);
     }
+    if (t < nf) step(t, alpha0, alpha1, ac0);
+    const float* last = (nf & 1) ? alpha1 : alpha0;
 
     // first-match argmin of alpha + final over s
-    float lbest = INFINITY;
-    int larg = S;
-    for (int s = tx; s < S; s += nt) {
-        const float tot = __fadd_rn(cur[s], final_cost[(size_t)b * S + s]);
-        if (tot < lbest) {
-            lbest = tot;
-            larg = s;
+    float bv = INFINITY;
+    int bi = S;
+    if (live) {
+        const float tot = __fadd_rn(last[s], fin);
+        if (tot < bv) {
+            bv = tot;
+            bi = s;
         }
     }
-    red_v[tx] = lbest;
-    red_i[tx] = larg;
-    for (int t = nf + tx; t < T; t += nt) tids[(size_t)b * T + t] = 0;
-    __syncthreads();
-    if (tx != 0) return;
-    float bv = red_v[0];
-    int bi = red_i[0];
-    for (int i = 1; i < nt; ++i) {
-        const float v = red_v[i];
-        const int ii = red_i[i];
-        if (v < bv || (v == bv && ii < bi)) {
-            bv = v;
-            bi = ii;
-        }
-    }
-    total_cost[b] = bv;
-    int v = bi;
-    for (int t = nf - 1; t >= 0; --t) {
-        const int x = v * M + bpb[(size_t)t * S + v];
-        tids[(size_t)b * T + t] = in_tid[tab + x];
-        v = src_s[x];
-    }
+    khg::block_argmin(bv, bi, red_v, red_i);
+    int32_t* tb = tids + (size_t)b * T;
+    for (int i = nf + tx; i < T; i += nt) tb[i] = 0;
+    if (tx == 0) total_cost[b] = bv;
+
+    // backtrace: a frame's arc is (state, slot), and the slot's source
+    // comes from the shared table
+    const int32_t* tidb = in_tid + (size_t)b * S * M;
+    khg::backtrace_chunks(
+        bi, nf, stage, gbp, Sp, path, tb,
+        [&](int v, int m) { return srcs[v * M + m]; },
+        [&](int v, int m) { return tidb[v * M + m]; });
 }
 
 // The generic kernel: arc tables in global memory, alpha in shared
 // memory (ALPHA_SMEM) or in the (B, 2, S) scratch, BP-wide backpointers.
 // The arithmetic, the order of the arcs and both argmins are those of
-// viterbi_kernel, so the two give the same bits.
+// viterbi_compiled, so the two give the same bits.
 template <typename BP, bool ALPHA_SMEM>
 __global__ void viterbi_generic_kernel(
     const int32_t* __restrict__ in_src,      // (B, S, M)
@@ -300,13 +337,30 @@ int launch_generic_bp(const Args& a, cudaStream_t stream)
     return launch_generic<BP, false>(a, stream);
 }
 
+template <int M>
+int launch_compiled(const Args& a, cudaStream_t stream)
+{
+    const size_t smem = compiled_smem_bytes(a.S, M);
+    cudaError_t err = cudaFuncSetAttribute(
+        viterbi_compiled<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (a.B == 0 || a.S == 0) return 0;
+    viterbi_compiled<M><<<a.B, ((a.S + 31) / 32) * 32, smem, stream>>>(
+        (const int32_t*)a.in_src, (const int32_t*)a.in_pdf,
+        (const float*)a.in_cost, (const int32_t*)a.in_tid,
+        (const float*)a.init_cost, (const float*)a.final_cost,
+        (const float*)a.loglikes, (const int32_t*)a.num_frames, (int8_t*)a.bp,
+        (int32_t*)a.tids, (float*)a.total_cost, a.S, a.T, a.P, a.scale);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// One entry point for both kernels: the shared-memory kernel where the
-// tables fit a block and M < 128 (int8 backpointers), the generic one
-// otherwise, with int8 / int16 / int32 backpointers for M < 128 / M <
-// 32,768 / beyond.  bp must be (B, T, S) of that type; alpha_ws a (B, 2,
-// S) float scratch where the generic kernel keeps alpha in global
+// One entry point for both kernels: the compiled one where M <= 8 and S
+// <= 512 (bp a (B, T, Sp) int8 scratch, Sp = S rounded up to 16), the
+// generic one otherwise, with int8 / int16 / int32 backpointers for M <
+// 128 / M < 32,768 / beyond (bp (B, T, S) of that type); alpha_ws a (B,
+// 2, S) float scratch where the generic kernel keeps alpha in global
 // memory (8 S > 232,448 - 256 bytes), else unused.
 extern "C" int launch_viterbi(
     const void* in_src, const void* in_pdf, const void* in_cost,
@@ -317,26 +371,23 @@ extern "C" int launch_viterbi(
 {
     cudaStream_t st = (cudaStream_t)stream;
     if (M < 1) return (int)cudaErrorInvalidValue;
-    const int nt = block_threads(S);
-    const size_t smem = viterbi_smem_bytes(S, M, nt);
-    if (M >= 128 || smem > khg::SMEM_LIMIT) {
-        const Args a{in_src, in_pdf, in_cost, in_tid, init_cost, final_cost,
-                     loglikes, num_frames, bp, alpha_ws, tids, total_cost,
-                     B, S, M, T, P, scale};
-        if (M < 128) return launch_generic_bp<int8_t>(a, st);
-        if (M < 32768) return launch_generic_bp<int16_t>(a, st);
-        return launch_generic_bp<int32_t>(a, st);
+    const Args a{in_src, in_pdf, in_cost, in_tid, init_cost, final_cost,
+                 loglikes, num_frames, bp, alpha_ws, tids, total_cost,
+                 B, S, M, T, P, scale};
+    if (S <= FAST_S && M <= MAX_M) {
+        switch (M) {
+            case 1: return launch_compiled<1>(a, st);
+            case 2: return launch_compiled<2>(a, st);
+            case 3: return launch_compiled<3>(a, st);
+            case 4: return launch_compiled<4>(a, st);
+            case 5: return launch_compiled<5>(a, st);
+            case 6: return launch_compiled<6>(a, st);
+            case 7: return launch_compiled<7>(a, st);
+            case 8: return launch_compiled<8>(a, st);
+            default: break;
+        }
     }
-    cudaError_t err = cudaFuncSetAttribute(
-        viterbi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (B == 0 || S == 0) return 0;
-    viterbi_kernel<<<B, nt, smem, st>>>(
-        (const int32_t*)in_src, (const int32_t*)in_pdf,
-        (const float*)in_cost, (const int32_t*)in_tid,
-        (const float*)init_cost, (const float*)final_cost,
-        (const float*)loglikes, (const int32_t*)num_frames, (int8_t*)bp,
-        (int32_t*)tids, (float*)total_cost, S, M, T, P, scale);
-    return (int)cudaGetLastError();
+    if (M < 128) return launch_generic_bp<int8_t>(a, st);
+    if (M < 32768) return launch_generic_bp<int16_t>(a, st);
+    return launch_generic_bp<int32_t>(a, st);
 }

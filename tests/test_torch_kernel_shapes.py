@@ -1,4 +1,5 @@
-"""Which shapes the banded kernels and the stats fold take, on the CPU.
+"""Which shapes the banded kernels, the stats fold and the non-banded
+Viterbi kernel take, on the CPU.
 
 The banded Viterbi kernel (csrc/banded_viterbi.cu) and the banded
 forward-backward kernels (csrc/banded_fb.cu) each have a compiled path
@@ -21,6 +22,7 @@ from khg_tpu_torch.align.banded_fb import (
     fb_kernel_smem_bytes,
 )
 from khg_tpu_torch.align.banded_kernel import kernel_fits, kernel_smem_bytes
+from khg_tpu_torch.align.viterbi_kernel import viterbi_plan, viterbi_smem_bytes
 from khg_tpu_torch.gmm.fused_loglikes import (
     loglikes_grid,
     loglikes_smem_bytes,
@@ -301,3 +303,23 @@ def test_fold_workspace_mirror(B, S, T, P):
     U = min(P, B * S)
     assert fold_workspace_ints(B, S, T, P) == 3 * B * T + 3 * B * S + P + 5 * U + 8
     assert fold_workspace_floats(B, T, 32, 80) == B * T * (84 + 32 + 2)
+
+
+# (S, M): bytes that launch_viterbi requests for its compiled kernel:
+# alpha 2 x 512 f32 (4,096) + staged backpointers 2 x 32 rows of S
+# padded to 16 bytes + the source table S x M i32 + path 2 x 2 x 32 i32
+# (512) + argmin scratch 256
+NONBANDED_SMEM = {
+    (256, 4): 4096 + 64 * 256 + 256 * 4 * 4 + 512 + 256,   # 25,344
+    (1, 1): 4096 + 64 * 16 + 1 * 1 * 4 + 512 + 256,        # 5,892
+    (33, 5): 4096 + 64 * 48 + 33 * 5 * 4 + 512 + 256,      # 8,596
+    (512, 8): 4096 + 64 * 512 + 512 * 8 * 4 + 512 + 256,   # 54,016
+}
+
+
+@pytest.mark.parametrize("S,M", sorted(NONBANDED_SMEM))
+def test_nonbanded_viterbi_smem_mirror(S, M):
+    """The compiled kernel takes these shapes, (512, 8) its largest, and
+    each block fits."""
+    assert viterbi_plan(S, M)[0] == "compiled"
+    assert viterbi_smem_bytes(S, M) == NONBANDED_SMEM[(S, M)] <= LIMIT

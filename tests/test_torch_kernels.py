@@ -12,7 +12,9 @@ its compiled and generic paths, the stats fold with pdfs shared by
 several states or absent from them, one pdf taking most frames, a pdf
 on a state of only some utterances, all frames weighted 0, K not a
 multiple of 32 or too many to score whole (K up to 2,500), the non-banded Viterbi
-with 1 to 200 incoming arcs per state and up to 30,000 states).
+with 1 to 200 incoming arcs per state and up to 30,000 states, on both
+sides of its compiled kernel's limits and its backpointer chunks' edges,
+the fbank kernel at FFT sizes 256 to 1,024).
 
 These tests need an NVIDIA card and skip without one.  They import
 only the port, so they run where khg_tpu and jax are not installed;
@@ -53,7 +55,12 @@ from khg_tpu_torch.align.packed import (
 )
 from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain
 from khg_tpu_torch.features.fbank import FbankConfig, num_frames
-from khg_tpu_torch.features.fbank_kernel import _padded_wave, fbank_cuda, fbank_plain
+from khg_tpu_torch.features.fbank_kernel import (
+    _padded_wave,
+    fbank_cuda,
+    fbank_fused,
+    fbank_plain,
+)
 from khg_tpu_torch.gmm.fused_loglikes import loglikes_cuda, loglikes_plain
 from khg_tpu_torch.lang.lexicon import Lexicon, Lexiconp
 from khg_tpu_torch.lang.topo import generate_hmm_topo
@@ -392,7 +399,7 @@ def _random_arcs(rng, B, S, M, P, device):
     init = np.full((B, S), big, np.float32)
     init[:, 0] = 0.0
     final = np.full((B, S), big, np.float32)
-    final[:, -3:] = rng.uniform(0.0, 1.0, (B, 3))
+    final[:, -3:] = rng.uniform(0.0, 1.0, (B, min(S, 3)))
     final[2] = big
     zeros = np.zeros((B, S, M), np.int32)
     return BatchedGraphs(*[torch.as_tensor(x, device=device) for x in (
@@ -400,14 +407,20 @@ def _random_arcs(rng, B, S, M, P, device):
         np.zeros((B, S, M), np.float32), init, final)])
 
 
+_COMPILED_SM = [(S, M) for S in (1, 31, 32, 33, 512) for M in range(1, 9)]
+
+
 @pytest.mark.parametrize("S,M", [(37, 1), (100, 3), (300, 8), (45, 5), (5000, 4),
-                                 (64, 130), (300, 200), (30000, 2)])
+                                 (64, 130), (300, 200), (30000, 2)]
+                         + _COMPILED_SM + [(513, 4), (256, 9)])
 def test_viterbi_kernel(cuda_device, S, M):
     """Costs bit-equal and tids equal to the eager DP, with a zero-frame
     utterance (3) and one with no final state (2, failed); on the
-    shared-memory kernel and on the generic one (tables beyond shared
-    memory at S = 5,000; int16 backpointers at M = 130 and 200; alpha in
-    global memory at S = 30,000)."""
+    compiled kernel (every M of 1 to 8 at S of 1, a warp less one, a
+    warp, a warp and one, and 512) and on the generic one (S = 513 and M
+    = 9 just past the compiled kernel; tables beyond shared memory at S =
+    5,000; int16 backpointers at M = 130 and 200; alpha in global memory
+    at S = 30,000)."""
     rng = np.random.default_rng(S * 10 + M)
     B, T, P = 5, 80, 29
     graphs = _random_arcs(rng, B, S, M, P, cuda_device)
@@ -422,6 +435,25 @@ def test_viterbi_kernel(cuda_device, S, M):
         assert torch.equal(tk, tp)
         assert bool(ck[2] >= 1e29)
         assert not bool(tk[3].any())
+
+
+@pytest.mark.parametrize("S,M", [(33, 1), (33, 8), (256, 4), (512, 3)])
+def test_viterbi_kernel_chunk_edges(cuda_device, S, M):
+    """The compiled kernel's backpointer chunks (32 frames; the last two
+    stay in shared memory, earlier ones go out and come back for the
+    backtrace): utterances of 200 frames (4 chunks out), 96 (one out),
+    64 and 65 (on a chunk's edge), 33, 1 and 0 frames, bit-equal."""
+    rng = np.random.default_rng(S * 100 + M)
+    B, T, P = 7, 200, 31
+    graphs = _random_arcs(rng, B, S, M, P, cuda_device)
+    ll = torch.as_tensor((-20 + 5 * rng.standard_normal((B, T, P))).astype(np.float32),
+                         device=cuda_device)
+    nf = torch.as_tensor(np.array([200, 96, 64, 65, 33, 1, 0], np.int32), device=cuda_device)
+    tk, ck = viterbi_cuda(graphs, ll, nf, 0.1)
+    tp, cp = viterbi_plain(graphs, ll, nf, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, cp)
+    assert torch.equal(tk, tp)
 
 
 def _fb_pair(tables, offsets, ll, nf, scale, num_tids):
@@ -621,23 +653,38 @@ def test_banded_fb_fwd_bit_equal(cuda_device, DK, S, failed):
     dict(),
     dict(snip_edges=True, use_energy=True),
     dict(sample_rate=8000, num_mel_bins=23, use_power=False, energy_floor=1.0),
-], ids=["8k", "16k", "snip-energy", "magnitude-floor"])
+    dict(sample_rate=22050),
+    dict(sample_rate=22050, snip_edges=True, use_energy=True),
+    dict(sample_rate=22050, use_power=False, energy_floor=1.0),
+    dict(sample_rate=16000, B=1),
+    dict(sample_rate=22050, num_mel_bins=23, B=1),
+], ids=["8k", "16k", "snip-energy", "magnitude-floor", "22k", "22k-snip-energy",
+        "22k-magnitude-floor", "16k-one-row", "22k-one-row"])
 def test_fbank_kernel(cuda_device, kw):
-    """Features and log energy within 1e-3 of the plain version."""
+    """Features and log energy within 1e-3 of the plain version, at FFT
+    sizes 256 (8 kHz), 512 (16 kHz) and 1,024 (22.05 kHz), on 0.77 s
+    rows (frame counts that fill no whole block of 32 frames); and the
+    whole of fbank_fused (gather, kernel, energy column) against its CPU
+    run."""
+    kw = dict(kw)
+    B = kw.pop("B", 3)
     cfg = FbankConfig(**kw)
     rng = np.random.default_rng(13)
     waves = torch.as_tensor(
-        (rng.standard_normal((3, int(cfg.sample_rate * 0.77))) * 300).astype(np.float32),
+        (rng.standard_normal((B, int(cfg.sample_rate * 0.77))) * 300).astype(np.float32),
         device=cuda_device,
     )
     T = num_frames(cfg, waves.shape[-1])
+    assert T % 32
     padded = _padded_wave(waves, cfg, T)
     fk, ek = fbank_cuda(padded, cfg, T)
     fp, ep = fbank_plain(padded, cfg, T)
     torch.cuda.synchronize()
-    assert fk.shape == (3, T, cfg.num_mel_bins)
+    assert fk.shape == (B, T, cfg.num_mel_bins)
     assert float((fk - fp).abs().max()) <= 1e-3
     assert float((ek - ep).abs().max()) <= 1e-3
+    whole = fbank_fused(waves, cfg)
+    assert float((whole.cpu() - fbank_fused(waves.cpu(), cfg)).abs().max()) <= 1e-3
 
 
 def test_segment_sum_is_deterministic_on_card(cuda_device):

@@ -69,8 +69,14 @@ def test_kernel_wrapper_rejects_cpu_tensors_and_wide_tables(setup):  # noqa: F81
     with pytest.raises(ValueError):
         viterbi_cuda(*_port_args(arrays, ll, nf), 0.5)
     # every (S, M) has a kernel: which one, its backpointers, where alpha lives
-    assert viterbi_plan(256, 4) == ("shared", torch.int8, "shared")
-    assert viterbi_plan(1000, 16) == ("shared", torch.int8, "shared")
+    assert viterbi_plan(256, 4) == ("compiled", torch.int8, "shared")
+    assert viterbi_plan(1, 1) == ("compiled", torch.int8, "shared")
+    assert viterbi_plan(512, 8) == ("compiled", torch.int8, "shared")
+    assert viterbi_plan(1000, 16) == ("generic", torch.int8, "shared")
+    assert viterbi_plan(513, 4) == ("generic", torch.int8, "shared")
+    assert viterbi_plan(256, 9) == ("generic", torch.int8, "shared")
+    assert viterbi_plan(2048, 4) == ("generic", torch.int8, "shared")
+    assert viterbi_plan(256, 16) == ("generic", torch.int8, "shared")
     assert viterbi_plan(8000, 4) == ("generic", torch.int8, "shared")
     assert viterbi_plan(64, 128) == ("generic", torch.int16, "shared")
     assert viterbi_plan(64, 200) == ("generic", torch.int16, "shared")
