@@ -16,7 +16,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    computing the same function.  Each kernel's bound is worked out from
    this run's inputs; for the Viterbi kernels and banded
    forward-backward it includes the serial frame chain, whose step
-   latencies csrc/latency_probe.cu times on the card.
+   latencies csrc/latency_probe.cu times on the card.  The fbank kernel
+   is also held to its plain version at 48 kHz, and its SASS must hold
+   TF32 tensor-core instructions.
 4. Main path: WAV -> extract_features (fbank kernel) -> train_corpus at
    the audiomnist_10k widths (1,000 Gaussians, batch 256, 256-multiple
    padding), depth cut to 6 passes.  Launch counts are set to 0 just
@@ -29,9 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (fb_em_passes_resident) through the banded forward-backward
    kernels, run twice (are the records bit-identical?  the rerun times
    each launch of kernels D and E with CUDA events), then with the
-   dense FB (align_backend="xla"), then one accumulate_forward_backward
-   pass.  Launch counts are set to 0 just before the first run and read
-   just after.
+   dense FB (align_backend="xla"); then pass 2 of both routes again from
+   one state (the banded route's model and transition model after one
+   pass); then one accumulate_forward_backward pass.  Launch counts are
+   set to 0 just before the first run and read just after.
 7. Wide hard EM at the triphone-bench widths: 512 utterances of 300
    standard-normal 80-dim frames over 16 distinct 3-word graphs (8
    batches of 64), 3 resident passes with align_backend="banded", run
@@ -70,6 +73,7 @@ KERNELS_ONLY = False
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and op/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 
 def log(msg: str) -> None:
@@ -624,114 +628,176 @@ def check_loglikes(P, results):
         f"{library_ms:.3f}, bound {b_ms:.4f} {b_by}, {b_ms / ms:.1%} of it)")
 
 
-def windowed_frames(padded, cfg, T):
-    """(B, T, frame_len) frames of the padded wave after DC removal,
-    pre-emphasis and the window (in the padded wave's type): what a real
-    FFT of the frontend takes."""
+def fbank_sass_hmma():
+    """{kernel name: count} of TF32 tensor-core instructions (``HMMA``
+    or ``HGMMA`` on TF32 operands) in each fbank kernel of the built
+    library's SASS, by ``cuobjdump -sass``."""
+    from khg_tpu_torch import kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", kernels.build_info["path"]],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, ""
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            if "fbank_kernel" in fn:
+                counts[fn] = 0
+        elif "fbank_kernel" in fn and re.search(r"\bH(G)?MMA\S*TF32", ln):
+            counts[fn] += 1
+    return counts
+
+
+def fbank_case(rows, cfg, reps):
+    """Kernel C against its plain version on (B, n) rows at ``cfg``:
+    (padded wave, T, errors, kernel ms, plain ms, frames that take the
+    sixth product: those of blocks whose wave span has a sample with a
+    third TF32 part)."""
     import torch
 
-    from khg_tpu_torch.features.fbank import _window
-
-    idx = (torch.arange(T, device=padded.device)[:, None] * cfg.frame_shift
-           + torch.arange(cfg.frame_length, device=padded.device)[None, :])
-    x = padded[:, idx]
-    if cfg.remove_dc_offset:
-        x = x - x.mean(-1, keepdim=True)
-    prev = torch.cat([x[..., :1], x[..., :-1]], -1)
-    y = x - cfg.preemph_coeff * prev
-    return y * torch.as_tensor(_window(cfg), device=padded.device, dtype=padded.dtype)
-
-
-def check_fbank(waves_np, cfg, results):
-    """Kernel C on 256 rows of 4.2 s at 8 kHz.  Besides the kernel, times
-    the reflect-pad gather that makes its input and the whole
-    ``fbank_fused`` (gather + kernel).  For information, a composition
-    of PyTorch calls on the same frames (DC removal, pre-emphasis and
-    window outside the timing; ``torch.fft.rfft``, the power, the mel
-    product, the log) in f32 (timed) and in f64 (the exact function, to
-    f64 rounding), each held against the plain version: how far a real
-    FFT of these frames lands from the dense f32 formulation."""
-    import numpy as np
-    import torch
-
-    from khg_tpu_torch.features.fbank import mel_banks, num_frames
+    from khg_tpu_torch.features.fbank import num_frames
     from khg_tpu_torch.features.fbank_kernel import (
+        FRAMES,
         _padded_wave,
         fbank_cuda,
-        fbank_fused,
         fbank_plain,
+        fbank_plan,
+        split_tf32,
     )
 
-    n = int(4.2 * cfg.sample_rate)
-    rows = np.stack([
-        np.pad(w, (0, max(0, n - len(w))), mode="symmetric")[:n]
-        for w in waves_np[:256]
-    ]).astype(np.float32)
+    B, n = rows.shape
     waves = torch.as_tensor(rows, device="cuda")
     T = num_frames(cfg, n)
     padded = _padded_wave(waves, cfg, T)
     fk, ek = fbank_cuda(padded, cfg, T)
     fp, ep = fbank_plain(padded, cfg, T)
     torch.cuda.synchronize()
-    if fk.shape != (256, T, cfg.num_mel_bins) or not torch.isfinite(fk).all():
-        raise AssertionError("kernel C: wrong shape or non-finite output")
+    if fk.shape != (B, T, cfg.num_mel_bins) or not torch.isfinite(fk).all():
+        raise AssertionError(f"kernel C at {cfg.sample_rate} Hz: wrong shape or "
+                             f"non-finite output")
     err = float((fk - fp).abs().max())
     err_e = float((ek - ep).abs().max())
     if err > 1e-3 or err_e > 1e-3:
-        raise AssertionError(f"kernel C: max abs err {err} (energy {err_e}) > 1e-3")
-    ms = time_ms(lambda: fbank_cuda(padded, cfg, T), reps=10)
-    plain_ms = time_ms(lambda: fbank_plain(padded, cfg, T), reps=10)
+        raise AssertionError(f"kernel C at {cfg.sample_rate} Hz: max abs err {err} "
+                             f"(energy {err_e}) > 1e-3")
+    ms = time_ms(lambda: fbank_cuda(padded, cfg, T), reps=reps)
+    plain_ms = time_ms(lambda: fbank_plain(padded, cfg, T), reps=reps)
+    plan = fbank_plan(cfg)
+    lo = split_tf32(padded.cpu().numpy())[2] != 0
+    lo_frames = 0
+    for t0 in range(0, T, FRAMES):
+        span = lo[:, t0 * cfg.frame_shift:(t0 + plan.rows) * cfg.frame_shift]
+        lo_frames += int(span.any(1).sum()) * min(FRAMES, T - t0)
+    return padded, T, err, err_e, ms, plain_ms, lo_frames
+
+
+def fbank_bound(cfg, B, T, n, lo_frames):
+    """(bound_ms, bound_by) of kernel C: the larger of its bytes (wave in,
+    features and energy out) over the memory rate and its operations:
+    the TF32 products over the used bins (5 a frame, 6 for the
+    ``lo_frames``) at the tensor cores' rate, the power, mel sums, log
+    and energy sums at the fp32 rate."""
+    import numpy as np
+
+    from khg_tpu_torch.features.fbank_kernel import kernel_tables, used_bins
+
+    flen, M = cfg.frame_length, cfg.num_mel_bins
+    _first, count = used_bins(cfg)
+    nnz = int(np.count_nonzero(kernel_tables(cfg)[1]))
+    frames = B * T
+    tc_ops = (5 * frames + lo_frames) * 2 * flen * 2 * count
+    fp32_ops = frames * (3 * count + 2 * nnz + M + 3 * flen)
+    t_ops = (tc_ops / TF32_OPS_PER_S + fp32_ops / FP32_OPS_PER_S) * 1e3
+    t_bytes = (B * n * 4 + frames * (M + 1) * 4) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_fbank(waves_np, cfg, results):
+    """Kernel C on 256 rows of 4.2 s at 8 kHz (the WAVs' integer
+    samples), and on 64 of them upsampled to 48 kHz (``resample_poly``,
+    rounded to integers as a WAV holds them; FFT size 2,048), each held
+    to the plain version at 1e-3.  Also: the TF32 tensor-core
+    instructions in the kernels' SASS (there must be some); the times of
+    the reflect-pad gather and of the whole ``fbank_fused`` at 8 kHz;
+    and, as a yardstick only (the port never calls it),
+    ``product_gemm_ms``: one full-fp32 ``torch.matmul`` (TF32 off, set
+    here) of the materialised frames against ``[M_re | M_im]``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from scipy.signal import resample_poly
+
+    from khg_tpu_torch.features.fbank_kernel import (
+        _padded_wave,
+        _tables,
+        fbank_fused,
+        fbank_plan,
+        used_bins,
+    )
+
+    sass = fbank_sass_hmma()
+    if not sass or not all(sass.values()):
+        raise AssertionError(f"kernel C: no TF32 tensor-core instructions in {sass}")
+    n = int(4.2 * cfg.sample_rate)
+    rows = np.stack([
+        np.pad(w, (0, max(0, n - len(w))), mode="symmetric")[:n]
+        for w in waves_np[:256]
+    ]).astype(np.float32)
+    padded, T, err, err_e, ms, plain_ms, lo_frames = fbank_case(rows, cfg, reps=10)
+    waves = torch.as_tensor(rows, device="cuda")
     gather_ms = time_ms(lambda: _padded_wave(waves, cfg, T), reps=10)
     fused_ms = time_ms(lambda: fbank_fused(waves, cfg), reps=10)
-    B, F, M = 256, cfg.fft_size // 2 + 1, cfg.num_mel_bins
-    flen, nfft = cfg.frame_length, cfg.fft_size
-    mel_t = torch.as_tensor(np.ascontiguousarray(mel_banks(cfg).T), device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick in full fp32
+    m_re, m_im, _mel_t = _tables(cfg, "cuda")
+    m_cat = torch.cat([m_re, m_im], 1)
+    idx = (torch.arange(T, device="cuda")[:, None] * cfg.frame_shift
+           + torch.arange(cfg.frame_length, device="cuda")[None, :])
+    frames = padded[:, idx]
+    gemm_ms = time_ms(lambda: frames @ m_cat, reps=10)
+    del frames
+    B, M = 256, cfg.num_mel_bins
+    b_ms, b_by = fbank_bound(cfg, B, T, n, lo_frames)
 
-    def composition(y):
-        spec = torch.view_as_real(torch.fft.rfft(y, n=nfft)).square().sum(-1)
-        return torch.log(torch.clamp(spec @ mel_t.to(y.dtype), min=1.1754944e-38))
+    cfg48 = dataclasses.replace(cfg, sample_rate=48000)
+    up = 48000 // math.gcd(48000, cfg.sample_rate)
+    down = cfg.sample_rate // math.gcd(48000, cfg.sample_rate)
+    rows48 = np.clip(np.round(resample_poly(rows[:64].astype(np.float64), up, down, axis=1)),
+                     -32768, 32767).astype(np.float32)
+    _p48, T48, err48, err48_e, ms48, plain48, lo48 = fbank_case(rows48, cfg48, reps=5)
+    b48_ms, b48_by = fbank_bound(cfg48, 64, T48, rows48.shape[1], lo48)
 
-    y32 = windowed_frames(padded, cfg, T)
-    comp_err = float((composition(y32) - fp).abs().max())
-    comp_ms = time_ms(lambda: composition(y32), reps=10)
-    del y32
-    exact = composition(windowed_frames(padded.double(), cfg, T))
-    plain_vs_exact = (fp.double() - exact).abs().amax((0, 1))
-    nbytes = B * n * 4 + B * T * (M + 1) * 4
-    # per frame, both counts: power (3F), the mel product over the
-    # filters' nonzero weights, the log (M).  The function's floor takes
-    # the spectrum by a real FFT (~2.5 N log2 N flops) after DC removal,
-    # pre-emphasis, window and energy (7 flen); the kernel's design
-    # takes it by two dense (flen, F) products with those folded in, plus
-    # the energy sums (3 flen).
-    nnz = int(np.count_nonzero(mel_banks(cfg)))
-    tail = 3 * F + 2 * nnz + M
-    fft_ops = B * T * (2.5 * nfft * math.log2(nfft) + 7 * flen + tail)
-    dft_ops = B * T * (2 * 2 * flen * F + 3 * flen + tail)
-    b_ms, b_by = bound(nbytes, fft_ops, FP32_OPS_PER_S)
-    dft_ms, dft_by = bound(nbytes, dft_ops, FP32_OPS_PER_S)
+    def plan_of(c):
+        return dict(fbank_plan(c)._asdict(), used_bins=used_bins(c)[1])
+
     results["fbank"] = dict(
         name="fbank", route="cuda", source="khg_tpu_torch/csrc/fbank.cu",
         replaces="khg_tpu/features/pallas_fbank.py:93",
-        max_abs_err=max(err, err_e), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, feats_max_abs_err=err,
+        max_abs_err=max(err, err_e, err48, err48_e), ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, feats_max_abs_err=err,
         energy_max_abs_err=err_e, gather_ms=gather_ms, fbank_fused_ms=fused_ms,
-        rfft_composition=dict(
-            calls="torch.fft.rfft, square, sum, matmul, clamp, log", ms=comp_ms,
-            max_abs_err=comp_err,
-            f64_max_abs_err=float(plain_vs_exact.max()),
-            f64_max_abs_err_per_filter=plain_vs_exact.tolist()),
-        dense_dft_bound_ms=dft_ms, dense_dft_bound_by=dft_by,
-        shape=dict(B=B, T=T, frame_len=flen, N=nfft, F=F, M=M, mel_nonzeros=nnz),
+        product_gemm_ms=gemm_ms,
+        product_gemm="torch.matmul of (B, T, flen) frames by [M_re | M_im], fp32 "
+                     "(allow_tf32 False); a yardstick, not the function",
+        lo_product_frames=lo_frames, plan=plan_of(cfg), sass_tf32_mma=sass,
+        shape=dict(B=B, T=T, frame_len=cfg.frame_length, N=cfg.fft_size,
+                   F=cfg.fft_size // 2 + 1, M=M),
+        at_48k=dict(B=64, T=T48, frame_len=cfg48.frame_length, N=cfg48.fft_size,
+                    max_abs_err=err48, energy_max_abs_err=err48_e, ms=ms48,
+                    plain_ms=plain48, bound_ms=b48_ms, bound_by=b48_by,
+                    lo_product_frames=lo48, plan=plan_of(cfg48)),
         tolerance="log-mel and log-energy 1e-3 (max abs)",
     )
-    log(f"kernel C fbank: B={B} T={T} N={nfft} F={F} M={M}: err {err:.2e} (energy "
-        f"{err_e:.2e}); {ms:.4f} ms (plain {plain_ms:.3f}, bound {b_ms:.4f} "
-        f"{b_by}, {b_ms / ms:.1%} of it; with the dense DFT {dft_ms:.4f} {dft_by}); "
-        f"gather {gather_ms:.4f} ms, fbank_fused {fused_ms:.4f} ms; rfft "
-        f"composition (6 calls) {comp_ms:.4f} ms, err {comp_err:.2e} (in f64: "
-        f"{float(plain_vs_exact.max()):.2e}; per mel filter "
-        f"{[round(float(v), 5) for v in plain_vs_exact]})")
+    log(f"kernel C fbank: B={B} T={T} N={cfg.fft_size} M={M} ({lo_frames} frames "
+        f"take the sixth product; plan {plan_of(cfg)}): err {err:.2e} (energy {err_e:.2e}); "
+        f"{ms:.4f} ms (plain {plain_ms:.3f}, bound {b_ms:.4f} {b_by}, "
+        f"{b_ms / ms:.1%} of it); gather {gather_ms:.4f} ms, fbank_fused "
+        f"{fused_ms:.4f} ms; fp32 product GEMM yardstick {gemm_ms:.4f} ms; "
+        f"SASS TF32 mma {list(sass.values())}")
+    log(f"kernel C fbank at 48 kHz: B=64 T={T48} N={cfg48.fft_size} ({lo48} frames "
+        f"take the sixth product; plan {plan_of(cfg48)}): err {err48:.2e} (energy {err48_e:.2e}); "
+        f"{ms48:.4f} ms (plain {plain48:.3f}, bound {b48_ms:.4f} {b48_by}, "
+        f"{b48_ms / ms48:.1%} of it)")
 
 
 def viterbi_batch(setup):
@@ -1227,7 +1293,16 @@ def pallas_backend(res, graphs, feats):
 
 def soft_em(res, graphs, feats):
     """Resident Baum-Welch from phase 4's model: banded kernels twice,
-    the dense FB once, and one accumulate_forward_backward pass.
+    the dense FB once, each for 2 passes; pass 2 of both routes again
+    from one state; and one accumulate_forward_backward pass.
+
+    The 2-pass runs are held to 1e-4 per frame in tot_log_like, tot_frames
+    and log Z, except pass 2's tot_log_like, held to 5e-4: each route's
+    M-step feeds its own second pass, and in the recorded runs EM
+    amplified the routes' pass-1 f32 noise in that likelihood 9-72x
+    (8.7e-5 per frame on the first port's fbank features, 1.7e-4 on the
+    split-TF32 kernel's).  Pass 2 from one state (the banded route's model and
+    transition model after one pass) holds all three to 1e-4.
 
     The transition and self-loop scales are equal (1.0), so the graph
     weights are the transition probabilities raised to one power and
@@ -1246,12 +1321,18 @@ def soft_em(res, graphs, feats):
 
     frames = sum(f.shape[0] for f in feats)
 
-    def pipeline(backend):
+    def pipeline(backend, tm=None):
         return EStepPipeline(
-            copy.deepcopy(res.transition_model), acoustic_scale=0.1,
+            copy.deepcopy(res.transition_model if tm is None else tm), acoustic_scale=0.1,
             transition_scale=1.0, self_loop_scale=1.0, batch_size=256,
             mix_pad_multiple=8, states_pad_multiple=256,
             frames_pad_multiple=256, align_backend=backend, device=DEVICE,
+        )
+
+    def passes(pipe, model, base, n):
+        return pipe.fb_em_passes_resident(
+            model, base, feats, n, mle_config=MleDiagGmmOptions(),
+            transition_cfg=MleTransitionUpdateConfig(),
         )
 
     recs, walls = [], {}
@@ -1266,10 +1347,7 @@ def soft_em(res, graphs, feats):
         # the rerun times each launch of kernels D and E
         with (event_timed(banded_fb, ("banded_fb_fwd_cuda", "banded_fb_bwd_cuda"),
                           calls) if run == 1 else contextlib.nullcontext()):
-            _m, rec = pipe.fb_em_passes_resident(
-                model, base, feats, 2, mle_config=MleDiagGmmOptions(),
-                transition_cfg=MleTransitionUpdateConfig(),
-            )
+            _m, rec = passes(pipe, model, base, 2)
         secs = time.perf_counter() - t0
         if run == 0:
             launches = dict(kernels.LAUNCHES)
@@ -1304,15 +1382,58 @@ def soft_em(res, graphs, feats):
             raise AssertionError(f"kernel {k} never launched on the soft-EM path")
     log(f"banded soft EM run twice: records bit-identical: "
         f"{bool((b0 == b1).all())}; max abs diff {float(np.abs(b0 - b1).max())}")
-    # tot_log_like, tot_frames and log Z within 1e-4 per frame
+    # tot_log_like, tot_frames and log Z within 1e-4 per frame, pass 2's
+    # tot_log_like within 5e-4 (the docstring says why)
     per_frame = np.abs(b0 - x) / frames
     log(f"banded vs dense records, per frame: log Z {per_frame[:, 2].tolist()}, "
         f"tot_log_like {per_frame[:, 0].tolist()}, tot_frames "
         f"{per_frame[:, 1].tolist()}")
-    if per_frame[:, :3].max() > 1e-4:
+    limit = np.full((2, 3), 1e-4)
+    limit[1, 0] = 5e-4
+    if (per_frame[:, :3] > limit).any():
         raise AssertionError(f"soft EM: banded vs dense records differ by "
-                             f"{per_frame[:, :3].max(0)} per frame (> 1e-4)")
+                             f"{per_frame[:, :3].tolist()} per frame (limits "
+                             f"{limit.tolist()})")
     if (b0[:, 3:6] != x[:, 3:6]).any():
+        raise AssertionError("soft EM: banded vs dense utterance counts differ")
+
+    # pass 2 of both routes from one state.  The base graphs depend only
+    # on each transition id's pdf: packed once, outside the timings.
+    base = pipeline("banded").pack_graphs_base(graphs)
+    banded, dense = pipeline("banded"), pipeline("xla")
+    m1, r1 = passes(banded, banded.pack_model_device(res.am), base, 1)
+    m1x, x1 = passes(dense, dense.pack_model_device(res.am), base, 1)
+    dense = pipeline("xla", tm=banded.tm)  # the banded route's state after pass 1
+    t0 = time.perf_counter()
+    _m, x2 = passes(dense, m1, base, 1)
+    walls["xla_pass2_from_banded_s"] = time.perf_counter() - t0
+    _m, r2 = passes(banded, m1, base, 1)
+    if not (np.concatenate([r1, r2]) == b0).all():
+        raise AssertionError("soft EM: the banded route restarted after one pass "
+                             "differs from its 2-pass run")
+    if not (x1 == x[:1]).all():
+        raise AssertionError("soft EM: the dense route's first pass differs from "
+                             "its 2-pass run's")
+    # how far pass 1 left the two routes' models apart (finite entries;
+    # and how many entries are finite in one model only)
+    gaps = {}
+    for name, a, c in zip(("gconsts", "means_invvars", "inv_vars", "weights"), m1, m1x):
+        both = torch.isfinite(a) & torch.isfinite(c)
+        gaps[name] = (float((a - c)[both].abs().max()),
+                      int((torch.isfinite(a) != torch.isfinite(c)).sum()))
+    gap2 = np.abs(r2 - x2)[0] / frames
+    log(f"banded restarted after one pass: records equal to its 2-pass run's; "
+        f"dense pass 1 equal to its own; models after pass 1, banded vs dense, "
+        f"max abs gap (entries finite in one only): {gaps}; pass 2 from the "
+        f"banded state, per frame: log Z {gap2[2]}, tot_log_like {gap2[0]}, "
+        f"tot_frames {gap2[1]}")
+    if x2[:, 4].any():
+        raise AssertionError("soft EM: dense forward-backward failures")
+    if gap2[:3].max() > 1e-4:
+        raise AssertionError(f"soft EM: pass 2 from one state, banded vs dense "
+                             f"records differ by {gap2[:3].tolist()} per frame "
+                             f"(> 1e-4)")
+    if (r2[:, 3:6] != x2[:, 3:6]).any():
         raise AssertionError("soft EM: banded vs dense utterance counts differ")
 
     pipe = pipeline("banded")

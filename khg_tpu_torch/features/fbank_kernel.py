@@ -9,6 +9,16 @@ preprocessing survives into the kernel.  The reflect-pad gather that
 builds the padded wave stays plain PyTorch outside the kernel, as it
 stays XLA outside the Pallas kernel in khg_tpu.
 
+The kernel takes those products on the tensor cores in TF32, as the
+TPU kernel takes them on its matrix unit at ``Precision.HIGHEST``: both
+operands are split into three TF32 parts that sum to them exactly
+(``split_tf32``), and the six products of frame part i and table part j
+with i + j <= 2 reproduce the product of the f32 operands.  The table
+(``kernel_tables``) holds Re and Im of each bin that a mel filter uses
+side by side, split and laid out in the order of the tensor cores'
+operand fragments; ``fbank_plan`` mirrors the launcher's block shape and
+shared memory.
+
 ``fbank_fused`` takes the kernel for CUDA tensors and the plain version
 only for CPU tensors.
 """
@@ -18,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -117,11 +128,146 @@ def fbank_plain(padded: torch.Tensor, cfg: FbankConfig, T: int):
     return feats, loge
 
 
+# the launcher's constants (csrc/fbank.cu)
+SMEM_LIMIT = 232448      # shared memory a block may take on an H100 (bytes)
+FRAMES = 64              # frames a block: wgmma's M
+CHUNK = 64               # table columns per chunk: 32 bins, Re and Im
+STAGE_K = 16             # table rows per ring stage: two mma k-steps of 8
+STAGES = 3               # ring stages
+STAGE_FLOATS = 2 * 3 * (CHUNK // 8) * 64   # one stage: 3 parts, fragment order
+PW_PAD = 8                                 # power row of a bin: frames + 8
+
+
+def split_tf32(x, parts: int = 3) -> np.ndarray:
+    """(parts, *x.shape) f32: ``x`` (f32) as a sum of TF32 values, each
+    rounded to nearest (ties away from zero, as ``cvt.rna.tf32.f32``)
+    from what the parts before it left.  A TF32 value is an f32 whose
+    low 13 mantissa bits are 0: 11 significant bits, so three parts sum
+    to every finite f32 of magnitude 2**-113 to 2**127 exactly, and
+    integers up to 2**16 need two.  TF32 keeps f32's exponents but only
+    10 fraction bits, so below that range the parts are multiples of
+    2**-136 and miss the input by at most 2**-137."""
+    rest = np.array(x, dtype=np.float32)
+    out = np.empty((parts,) + rest.shape, dtype=np.float32)
+    for i in range(parts):
+        bits = rest.view(np.uint32)
+        finite = (bits & 0x7F800000) != 0x7F800000
+        rounded = np.where(finite, (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000), bits)
+        out[i] = rounded.astype(np.uint32).view(np.float32)
+        with np.errstate(invalid="ignore"):
+            rest = np.where(finite, rest - out[i], np.float32(0)).astype(np.float32)
+    return out
+
+
+class FbankPlan(NamedTuple):
+    """How ``csrc/fbank.cu`` cuts a config (blocks of ``FRAMES`` frames):
+    ``kp`` the frame length rounded up to ``STAGE_K``, ``stride`` the
+    padded row of the wave span in shared memory, ``rows`` its rows, and
+    ``smem`` the bytes a block requests."""
+
+    kp: int
+    stride: int
+    rows: int
+    smem: int
+
+
+def fbank_smem_bytes(frames: int, shift: int, kp: int, stride: int, M: int) -> int:
+    """Mirror of the launcher's shared-memory request: the wave span
+    (rounded up to 16 bytes), the ring's stages, one chunk's power (32
+    bins x frames + 8) and the mel sums (M x frames + 1)."""
+    rows = frames + (kp - 1) // shift
+    span = -(-rows * stride // 4) * 4
+    return 4 * (span + STAGES * STAGE_FLOATS + CHUNK // 2 * (frames + PW_PAD)
+                + M * (frames + 1))
+
+
+@functools.lru_cache(maxsize=32)
+def fbank_plan(cfg: FbankConfig) -> FbankPlan:
+    """The kernel's cut of ``cfg`` into blocks of ``FRAMES`` frames;
+    raises ``ValueError`` for a config whose block does not fit the
+    shared memory (e.g. 25 ms frames at 96 kHz)."""
+    flen, shift, M = cfg.frame_length, cfg.frame_shift, cfg.num_mel_bins
+    if shift < 8 or flen < 1 or M < 1:
+        raise ValueError(
+            f"fbank kernel: frame shift {shift} (< 8 samples), frame length "
+            f"{flen} or {M} mel bins is beyond its plan")
+    kp = -(-flen // STAGE_K) * STAGE_K
+    stride = shift + (4 - shift) % 8  # the next >= shift that is 4 (mod 8)
+    smem = fbank_smem_bytes(FRAMES, shift, kp, stride, M)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"fbank kernel: {cfg} needs {smem} bytes of shared memory a block, "
+            f"above the {SMEM_LIMIT} a block may take")
+    rows = FRAMES + (kp - 1) // shift
+    return FbankPlan(kp, stride, rows, smem)
+
+
+def used_bins(cfg: FbankConfig):
+    """(first, count): the FFT bins that some mel filter weighs (the DC
+    and Nyquist bins never are); the kernel computes only these."""
+    nz = np.flatnonzero(mel_banks(cfg).any(axis=0))
+    if nz.size == 0:
+        return 0, 1
+    return int(nz[0]), int(nz[-1] - nz[0] + 1)
+
+
+@functools.lru_cache(maxsize=8)
+def kernel_tables(cfg: FbankConfig):
+    """Host tables of the kernel, in numpy: ``parts`` (3, kp, ncols), the
+    folded matrices with Re and Im of each used bin side by side (column
+    2q Re, 2q + 1 Im of bin first + q), zero rows past the frame length
+    and zero columns up to a whole chunk, split by ``split_tf32``; the
+    mel weights of the used bins (M, count); each filter's range of
+    nonzero weights [lo, hi) among them (M, 2) int32; and for each chunk
+    the range [lo, hi) of filters that weigh one of its bins (chunks, 2)
+    int32."""
+    plan = fbank_plan(cfg)
+    m_re, m_im = folded_frontend(cfg)
+    first, count = used_bins(cfg)
+    ncols = -(-2 * count // CHUNK) * CHUNK
+    table = np.zeros((plan.kp, ncols), dtype=np.float32)
+    table[: cfg.frame_length, 0 : 2 * count : 2] = m_re[:, first : first + count]
+    table[: cfg.frame_length, 1 : 2 * count : 2] = m_im[:, first : first + count]
+    mel = np.ascontiguousarray(mel_banks(cfg)[:, first : first + count])
+    rng = np.zeros((mel.shape[0], 2), dtype=np.int32)
+    for m, row in enumerate(mel):
+        nz = np.flatnonzero(row)
+        if nz.size:
+            rng[m] = nz[0], nz[-1] + 1
+    bins = CHUNK // 2
+    chunks = np.zeros((ncols // CHUNK, 2), dtype=np.int32)
+    for c in range(len(chunks)):
+        nz = np.flatnonzero(mel[:, c * bins : (c + 1) * bins].any(axis=1))
+        if nz.size:
+            chunks[c] = nz[0], nz[-1] + 1
+    return split_tf32(table), mel, rng, chunks
+
+
+def fragment_order(parts: np.ndarray) -> np.ndarray:
+    """(kp / 8, 3, ncols / 8, 2, 8, 4): the split table as ``wgmma``'s
+    K-major B operand without swizzle, for each (k-step, part): per
+    8-column group, its two 8-row x 4-value core matrices (rows are
+    columns of the table, values its k), K-halves 128 bytes apart and
+    column groups 256 bytes apart."""
+    p, kp, ncols = parts.shape
+    x = parts.reshape(p, kp // 8, 2, 4, ncols // 8, 8)  # (p, s, kg, k, j, n)
+    return np.ascontiguousarray(x.transpose(1, 0, 4, 2, 5, 3))  # (s, p, j, kg, n, k)
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_tables_on(cfg: FbankConfig, device: str):
+    parts, mel, rng, chunks = kernel_tables(cfg)
+    return (torch.as_tensor(fragment_order(parts), device=device),
+            *(torch.as_tensor(x, device=device) for x in (mel, rng, chunks)))
+
+
 def fbank_cuda(padded: torch.Tensor, cfg: FbankConfig, T: int):
     """Launch ``csrc/fbank.cu`` on the padded wave (B, L) f32 on CUDA:
-    returns (feats (B, T, M), log_energy (B, T))."""
+    returns (feats (B, T, M), log_energy (B, T)).  Raises ``ValueError``
+    before any launch for a config beyond ``fbank_plan``."""
     from khg_tpu_torch import kernels
 
+    plan = fbank_plan(cfg)
     if padded.device.type != "cuda":
         raise ValueError("fbank_cuda needs a CUDA tensor")
     if padded.dtype != torch.float32 or padded.dim() != 2:
@@ -131,14 +277,17 @@ def fbank_cuda(padded: torch.Tensor, cfg: FbankConfig, T: int):
     flen, shift = cfg.frame_length, cfg.frame_shift
     if L < (T - 1) * shift + flen:
         raise ValueError("padded wave shorter than the frames it must cover")
-    m_re, m_im, mel_t = _tables(cfg, padded.device)
-    F, M = mel_t.shape
+    if B > 65535:
+        raise ValueError("fbank_cuda takes at most 65,535 rows a call")
+    table, mel, rng, chunks = _kernel_tables_on(cfg, str(padded.device))
+    M, nbins = mel.shape
     feats = torch.empty((B, T, M), dtype=torch.float32, device=padded.device)
     energy = torch.empty((B, T), dtype=torch.float32, device=padded.device)
     floor = math.log(cfg.energy_floor) if cfg.energy_floor > 0.0 else -math.inf
     err = kernels.lib().launch_fbank(
-        padded.data_ptr(), m_re.data_ptr(), m_im.data_ptr(), mel_t.data_ptr(),
-        feats.data_ptr(), energy.data_ptr(), B, L, T, shift, flen, F, M,
+        padded.data_ptr(), table.data_ptr(), mel.data_ptr(), rng.data_ptr(),
+        chunks.data_ptr(), feats.data_ptr(), energy.data_ptr(), B, L, T, shift, flen, plan.kp,
+        plan.stride, table.shape[2] * 8, nbins, M,
         int(cfg.remove_dc_offset), int(cfg.use_power), int(cfg.use_log_fbank),
         ctypes.c_float(floor), kernels.stream_handle(padded.device),
     )

@@ -57,9 +57,10 @@ _SIGNATURES = {
     "launch_banded_viterbi": [_P] * 11 + [_I] * 5 + [_F, _P],
     # x2, model, gconst, out, N, P, K, D2P, bf16, stream
     "launch_fused_loglikes": [_P] * 4 + [_I] * 5 + [_P],
-    # wave, m_re, m_im, mel_t, feats, energy, B, L, T, shift, flen, F, M,
-    # remove_dc, use_power, use_log, log_energy_floor, stream
-    "launch_fbank": [_P] * 6 + [_I] * 10 + [_F, _P],
+    # wave, table, mel_w, mel_rng, chunk_rng, feats, energy, B, L, T,
+    # shift, flen, kp, stride, ncols, nbins, M, remove_dc, use_power,
+    # use_log, log_energy_floor, stream
+    "launch_fbank": [_P] * 7 + [_I] * 13 + [_F, _P],
     # plane_cost, state_pdf, init, final, loglikes, nf, offsets, alphas,
     # log_z, B, DK, S, T, P, scale, stream
     "launch_banded_fb_fwd": [_P] * 9 + [_I] * 5 + [_F, _P],

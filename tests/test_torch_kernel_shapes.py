@@ -10,8 +10,8 @@ that the first ports' shared-memory formulas took must still be taken
 (the fold now takes every K, staging a pdf's model rows in chunks of
 components where they do not fit a score block whole),
 and the Python mirrors of the launchers' shared-memory requests (and of
-the stats fold's workspace) must equal the sizes worked out here from
-the .cu layouts.
+the stats fold's workspace, and of the fbank kernel's plan) must equal
+the sizes worked out here from the .cu layouts.
 """
 
 import pytest
@@ -23,6 +23,14 @@ from khg_tpu_torch.align.banded_fb import (
 )
 from khg_tpu_torch.align.banded_kernel import kernel_fits, kernel_smem_bytes
 from khg_tpu_torch.align.viterbi_kernel import viterbi_plan, viterbi_smem_bytes
+from khg_tpu_torch.features.fbank import FbankConfig
+from khg_tpu_torch.features.fbank_kernel import (
+    FRAMES,
+    STAGE_K,
+    fbank_cuda,
+    fbank_plan,
+    fbank_smem_bytes,
+)
 from khg_tpu_torch.gmm.fused_loglikes import (
     loglikes_grid,
     loglikes_smem_bytes,
@@ -323,3 +331,60 @@ def test_nonbanded_viterbi_smem_mirror(S, M):
     each block fits."""
     assert viterbi_plan(S, M)[0] == "compiled"
     assert viterbi_smem_bytes(S, M) == NONBANDED_SMEM[(S, M)] <= LIMIT
+
+
+# (sample rate, mel bins): bytes that launch_fbank requests for a block
+# of 64 frames: the wave span, rows = 64 + (kp - 1) // shift of a stride
+# padded to 4 (mod 8), rounded up to 4 floats; three ring stages of 2
+# k-steps x 3 parts x 64 columns x 8 rows; a chunk's power, 32 bins x
+# (64 + 8); the mel sums, M x (64 + 1).
+FBANK_SMEM = {
+    (8000, 23): 4 * (66 * 84 + 3 * 3072 + 32 * 72 + 23 * 65),           # 74,236
+    (16000, 80): 4 * (66 * 164 + 3 * 3072 + 32 * 72 + 80 * 65),         # 110,176
+    (22050, 80): 4 * (66 * 220 + 3 * 3072 + 32 * 72 + 80 * 65),         # 124,960
+    (22050, 128): 4 * (66 * 220 + 3 * 3072 + 32 * 72 + 128 * 65),       # 137,440
+    (44100, 80): 4 * (66 * 444 + 3 * 3072 + 32 * 72 + 80 * 65),         # 184,096
+    (48000, 23): 4 * (66 * 484 + 3 * 3072 + 32 * 72 + 23 * 65),         # 179,836
+    (48000, 80): 4 * (66 * 484 + 3 * 3072 + 32 * 72 + 80 * 65),         # 194,656
+    (48000, 128): 4 * (66 * 484 + 3 * 3072 + 32 * 72 + 128 * 65),       # 207,136
+}
+
+
+@pytest.mark.parametrize("rate,M", sorted(FBANK_SMEM))
+def test_fbank_plan_mirror(rate, M):
+    """fbank_plan's bytes equal the launcher's layout, and
+    fbank_smem_bytes is the formula the plan applies."""
+    plan = fbank_plan(FbankConfig(sample_rate=rate, num_mel_bins=M))
+    assert plan.smem == FBANK_SMEM[(rate, M)]
+    shift = FbankConfig(sample_rate=rate).frame_shift
+    assert plan.smem == fbank_smem_bytes(FRAMES, shift, plan.kp, plan.stride, M)
+    assert plan.stride % 8 == 4 and 0 <= plan.stride - shift < 8
+    assert plan.kp % STAGE_K == 0 and plan.rows == FRAMES + (plan.kp - 1) // shift
+
+
+@pytest.mark.parametrize("M", [23, 40, 80, 128])
+@pytest.mark.parametrize("rate", [8000, 11025, 16000, 22050, 32000, 44100, 48000])
+def test_fbank_plan_fits(rate, M):
+    """Every rate from 8 to 48 kHz (25 ms frames, FFT sizes 256 to 2,048)
+    fits one block's shared memory."""
+    assert fbank_plan(FbankConfig(sample_rate=rate, num_mel_bins=M)).smem <= LIMIT
+
+
+@pytest.mark.parametrize("rate", [96000, 192000])
+def test_fbank_beyond_plan_raises_before_launch(monkeypatch, rate):
+    """A config beyond the plan (25 ms frames at 96 kHz need 321,376
+    bytes, at 192 kHz 574,816) raises ValueError from fbank_cuda before
+    the kernel library is touched."""
+    import torch
+
+    from khg_tpu_torch import kernels
+
+    def no_launch():
+        raise AssertionError("the kernel library was reached")
+
+    monkeypatch.setattr(kernels, "lib", no_launch)
+    cfg = FbankConfig(sample_rate=rate)
+    with pytest.raises(ValueError, match="shared memory"):
+        fbank_plan(cfg)
+    with pytest.raises(ValueError, match="shared memory"):
+        fbank_cuda(torch.zeros((1, cfg.frame_length)), cfg, 1)

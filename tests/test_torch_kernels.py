@@ -14,7 +14,8 @@ on a state of only some utterances, all frames weighted 0, K not a
 multiple of 32 or too many to score whole (K up to 2,500), the non-banded Viterbi
 with 1 to 200 incoming arcs per state and up to 30,000 states, on both
 sides of its compiled kernel's limits and its backpointer chunks' edges,
-the fbank kernel at FFT sizes 256 to 1,024).
+the fbank kernel at FFT sizes 256 to 2,048, on full-mantissa and
+integer-valued rows).
 
 These tests need an NVIDIA card and skip without one.  They import
 only the port, so they run where khg_tpu and jax are not installed;
@@ -56,6 +57,7 @@ from khg_tpu_torch.align.packed import (
 from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain
 from khg_tpu_torch.features.fbank import FbankConfig, num_frames
 from khg_tpu_torch.features.fbank_kernel import (
+    FRAMES,
     _padded_wave,
     fbank_cuda,
     fbank_fused,
@@ -658,24 +660,33 @@ def test_banded_fb_fwd_bit_equal(cuda_device, DK, S, failed):
     dict(sample_rate=22050, use_power=False, energy_floor=1.0),
     dict(sample_rate=16000, B=1),
     dict(sample_rate=22050, num_mel_bins=23, B=1),
+    dict(sample_rate=44100),
+    dict(sample_rate=44100, snip_edges=True, use_energy=True),
+    dict(sample_rate=44100, num_mel_bins=23, B=1),
+    dict(sample_rate=48000),
+    dict(sample_rate=8000, num_mel_bins=23, integers=True),
+    dict(sample_rate=48000, integers=True),
 ], ids=["8k", "16k", "snip-energy", "magnitude-floor", "22k", "22k-snip-energy",
-        "22k-magnitude-floor", "16k-one-row", "22k-one-row"])
+        "22k-magnitude-floor", "16k-one-row", "22k-one-row", "44k", "44k-snip-energy",
+        "44k-one-row", "48k", "8k-integers", "48k-integers"])
 def test_fbank_kernel(cuda_device, kw):
     """Features and log energy within 1e-3 of the plain version, at FFT
-    sizes 256 (8 kHz), 512 (16 kHz) and 1,024 (22.05 kHz), on 0.77 s
-    rows (frame counts that fill no whole block of 32 frames); and the
-    whole of fbank_fused (gather, kernel, energy column) against its CPU
-    run."""
+    sizes 256 (8 kHz), 512 (16 kHz), 1,024 (22.05 kHz) and 2,048 (44.1
+    and 48 kHz), on 0.77 s rows (frame counts that fill no whole block of
+    FRAMES frames), of standard_normal x 300 (full f32 mantissas) or
+    integers (as a WAV holds them: no third TF32 part); and the whole of
+    fbank_fused (gather, kernel, energy column) against its CPU run."""
     kw = dict(kw)
     B = kw.pop("B", 3)
+    integers = kw.pop("integers", False)
     cfg = FbankConfig(**kw)
     rng = np.random.default_rng(13)
-    waves = torch.as_tensor(
-        (rng.standard_normal((B, int(cfg.sample_rate * 0.77))) * 300).astype(np.float32),
-        device=cuda_device,
-    )
+    w = rng.standard_normal((B, int(cfg.sample_rate * 0.77))) * 300
+    if integers:
+        w = np.clip(np.round(w * 20), -32768, 32767)
+    waves = torch.as_tensor(w.astype(np.float32), device=cuda_device)
     T = num_frames(cfg, waves.shape[-1])
-    assert T % 32
+    assert T % FRAMES
     padded = _padded_wave(waves, cfg, T)
     fk, ek = fbank_cuda(padded, cfg, T)
     fp, ep = fbank_plain(padded, cfg, T)

@@ -14,8 +14,10 @@ kept, runs ``chip_smoke.main()`` (all its phases and checks, its output
 as usual) and writes the kept records as hexadecimal floats, in call
 order: stage 2's average log-likelihood per pass and failures, and the
 (passes, columns) record of every resident hard and soft EM run of
-phases 4 to 7.  ``compare`` prints whether two such files are equal and
-where they first differ; it exits 1 if they differ.  ``run`` needs one
+phases 4 to 7.  ``compare`` matches the k-th call of each name in one
+file with the k-th in the other and prints whether they are equal and,
+for each call where they differ, the largest difference of each of its
+records; it exits 1 if they differ.  ``run`` needs one
 NVIDIA card.
 """
 
@@ -71,16 +73,32 @@ def run(root: Path, out: Path) -> int:
 def compare(a: Path, b: Path) -> int:
     ra = json.loads(a.read_text())["records"]
     rb = json.loads(b.read_text())["records"]
-    if len(ra) != len(rb):
-        print(f"records differ: {len(ra)} calls against {len(rb)}")
+    # the k-th call of each name in one file against the k-th in the other
+    names = list(dict.fromkeys(r["call"] for r in ra + rb))
+    differ = 0
+    for name in names:
+        xa = [r for r in ra if r["call"] == name]
+        xb = [r for r in rb if r["call"] == name]
+        if len(xa) != len(xb):
+            differ += 1
+            print(f"{name}: {len(xa)} calls against {len(xb)}; the first "
+                  f"{min(len(xa), len(xb))} compared")
+        for k, (x, y) in enumerate(zip(xa, xb)):
+            if x == y:
+                continue
+            differ += 1
+            gaps = {}
+            for key in (key for key in x if key not in ("call", "shape")):
+                vx = [float.fromhex(v) for v in x[key]]
+                vy = [float.fromhex(v) for v in y.get(key, [])]
+                gaps[key] = (max((abs(p - q) for p, q in zip(vx, vy)), default=0.0)
+                             if len(vx) == len(vy) else f"{len(vx)} values against {len(vy)}")
+            print(f"{name} call {k} differs: max |difference| {gaps}")
+    if differ:
+        print(f"records differ ({differ} findings above)")
         return 1
-    for i, (x, y) in enumerate(zip(ra, rb)):
-        if x != y:
-            print(f"records differ from call {i} ({x['call']})")
-            return 1
-    calls = [r["call"] for r in ra]
     print(f"records equal to the bit: {len(ra)} calls "
-          f"({', '.join(f'{c} x{calls.count(c)}' for c in dict.fromkeys(calls))})")
+          f"({', '.join(f'{c} x{[r['call'] for r in ra].count(c)}' for c in names)})")
     return 0
 
 

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Split the card time of the banded Viterbi kernel (A), of the banded
-forward-backward kernels (D forward, E backward) and of the stats fold
-(F) into their parts, and time the non-banded Viterbi kernel's (G) two
-kernels on one batch.
+forward-backward kernels (D forward, E backward), of the stats fold (F)
+and of the fbank kernel (C) into their parts, and time the non-banded
+Viterbi kernel's (G) two kernels on one batch.
 
-    python3 tools/kernel_split.py [--src DIR] [--design parent|compiled] [--kernels A,D,E,F,G]
+    python3 tools/kernel_split.py [--src DIR] [--design parent|compiled] [--kernels A,C,D,E,F,G]
                                   [--out FILE]
 
 DIR holds the ``banded_viterbi.cu`` and ``banded_fb.cu`` to split
@@ -50,6 +50,12 @@ G (compiled design only): the compiled kernel and the generic one (the
    kernel) on chip_smoke.py's kernel G check batch (B=256, T=512,
    S=256, M=4), costs and tids compared to the bit, timed in turns,
    beside the batch's serial frame chain (chip_smoke.serial_bound).
+C (compiled design only): fbank.cu variants on check_fbank's rows (256
+   x 4.2 s at 8 kHz, the WAVs' integer samples) and on 64 of them
+   upsampled to 48 kHz (as check_fbank), timed in turns: the
+   products = whole less without mma; the five correction products =
+   whole less hi x hi only; the mel sums = whole less without them; the
+   table's ring = whole less without its copies.
 
 Prints one JSON object (and writes it to FILE, default
 chiprun_out/kernel_split.json).  Needs one NVIDIA card and nvcc.
@@ -217,6 +223,97 @@ _G_VARIANTS = {
 }
 
 
+_C_MMA = ("    wgmma_tf32(acc, ah, dh);\n",
+          "    wgmma_tf32(cor, ah, dl);\n"
+          "    wgmma_tf32(cor, am, dm);\n"
+          "    wgmma_tf32(cor, ah, dm);\n"
+          "    wgmma_tf32(cor, am, dh);\n"
+          "    if (LO) wgmma_tf32(cor, al, dh);\n")
+_C_VARIANTS = {
+    "whole": [],
+    "hi_only": [(_C_MMA[1], "")],
+    "no_mma": [(_C_MMA[0] + _C_MMA[1], "")],
+    "no_mel": [("for (int k = max(r.x, q0); k < hi; ++k)",
+                "for (int k = max(r.x, q0); k < (hi & 0); ++k)")],
+    "no_table": [("for (int i = tid; i < STAGE_FLOATS / 4; i += THREADS) {",
+                  "for (int i = tid; i < 0; i += THREADS) {")],
+}
+
+
+def fbank_split(chip_smoke, waves, src: Path, build: Path):
+    """Kernel C's parts on check_fbank's rows (8 kHz) and on 64 of them
+    upsampled to 48 kHz, from fbank.cu variants timed in turns."""
+    import math
+
+    import numpy as np
+    import torch
+    from scipy.signal import resample_poly
+
+    from khg_tpu_torch.features.fbank import FbankConfig, num_frames
+    from khg_tpu_torch.features.fbank_kernel import (
+        FRAMES,
+        _kernel_tables_on,
+        _padded_wave,
+        fbank_cuda,
+        fbank_plan,
+    )
+    from khg_tpu_torch.recipes.synth import SAMPLE_RATE
+
+    cfg = FbankConfig(sample_rate=SAMPLE_RATE, num_mel_bins=23)
+    n = int(4.2 * cfg.sample_rate)
+    rows = np.stack([np.pad(w, (0, max(0, n - len(w))), mode="symmetric")[:n]
+                     for w in waves[:256]]).astype(np.float32)
+    up = 48000 // math.gcd(48000, cfg.sample_rate)
+    down = cfg.sample_rate // math.gcd(48000, cfg.sample_rate)
+    rows48 = np.clip(np.round(resample_poly(rows[:64].astype(np.float64), up, down, axis=1)),
+                     -32768, 32767).astype(np.float32)
+    libs = build_variants(src / "fbank.cu", build, _C_VARIANTS, "C")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    out = {}
+    for name, r, c in (("8k", rows, cfg), ("48k", rows48, FbankConfig(sample_rate=48000,
+                                                                        num_mel_bins=23))):
+        T = num_frames(c, r.shape[1])
+        padded = _padded_wave(torch.as_tensor(r, device="cuda"), c, T)
+        plan = fbank_plan(c)
+        table, mel, rng, chunks = _kernel_tables_on(c, "cuda")
+        B, L = padded.shape
+        M, nbins = mel.shape
+        feats = torch.empty((B, T, M), device="cuda")
+        energy = torch.empty((B, T), device="cuda")
+
+        def call(lib, padded=padded, c=c, T=T, plan=plan, table=table, mel=mel, rng=rng,
+                 chunks=chunks, feats=feats, energy=energy, B=B, L=L, M=M, nbins=nbins):
+            def run():
+                err = lib.launch_fbank(
+                    padded.data_ptr(), table.data_ptr(), mel.data_ptr(), rng.data_ptr(),
+                    chunks.data_ptr(), feats.data_ptr(), energy.data_ptr(), B, L, T,
+                    c.frame_shift, c.frame_length, plan.kp, plan.stride, table.shape[2] * 8,
+                    nbins, M, 1, 1, 1, ctypes.c_float(-math.inf), stream)
+                if err:
+                    raise RuntimeError(f"launch failed: {err}")
+            return run
+
+        fk, _ek = fbank_cuda(padded, c, T)
+        call(libs["whole"])()
+        torch.cuda.synchronize()
+        if not torch.equal(fk, feats):
+            raise AssertionError("kernel C: the whole variant differs from the library's kernel")
+        ms = timed_in_turns({k: call(v) for k, v in libs.items()})
+        split = dict(products=ms["whole"] - ms["no_mma"],
+                     corrections=ms["whole"] - ms["hi_only"],
+                     mel_sums=ms["whole"] - ms["no_mel"],
+                     table_ring=ms["whole"] - ms["no_table"])
+        # blocks an SM holds: 228 KB of shared memory an SM, 1 KB of it
+        # reserved a block, at most 3 (the kernel's launch bounds)
+        out[name] = dict(shape=dict(B=B, T=T, frame_len=c.frame_length, N=c.fft_size, M=M,
+                                    ncols=table.shape[2] * 8, blocks=B * -(-T // FRAMES),
+                                    blocks_per_sm=min(3, 233472 // (plan.smem + 1024)),
+                                    table_bytes_per_block=table.numel() * 4,
+                                    plan=plan._asdict()),
+                         variant_ms=ms, split_ms=split)
+    return out
+
+
 def viterbi_kernels(chip_smoke, setup, src: Path, build: Path):
     """G's compiled and generic kernels on chip_smoke.py's check batch:
     bit-equal outputs, times in turns, the serial bound."""
@@ -338,7 +435,7 @@ def main() -> int:
                     help="which kernels the sources hold: the parent's or the compiled paths")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "kernel_split.json")
     ap.add_argument("--kernels", default="A,D,E,F",
-                    help="which kernels to split (F and G only with --design compiled)")
+                    help="which kernels to split (C, F and G only with --design compiled)")
     args = ap.parse_args()
     want = set(args.kernels.split(","))
 
@@ -370,7 +467,8 @@ def main() -> int:
         corpus = chip_smoke.make_corpus(Path(tmp))
         from khg_tpu_torch.data.wav import read_wav
 
-        lens = [len(read_wav(p)[0]) for p in corpus.wav_paths]
+        waves = [read_wav(p)[0] for p in corpus.wav_paths]
+        lens = [len(w) for w in waves]
     cfg = FbankConfig(sample_rate=SAMPLE_RATE, num_mel_bins=23)
     lp = Lexiconp.from_lexicon(Lexicon(word2phones=digits_lexicon())).add_lex_disambig()
     topo = generate_hmm_topo(non_sil_phones=lp.get_non_sil_phone_ids(),
@@ -488,6 +586,8 @@ def main() -> int:
                            us_per_frame=ms["whole"] / int(nf.max()) * 1e3)
     if args.design == "compiled" and "F" in want:
         result["F"] = fold_split(chip_smoke, args.src, build)
+    if args.design == "compiled" and "C" in want:
+        result["C"] = fbank_split(chip_smoke, waves, args.src, build)
     if args.design == "compiled" and "G" in want:
         result["G"] = viterbi_kernels(chip_smoke, setup, args.src, build)
     result["latency_ns"] = chip_smoke.step_latencies()
