@@ -5,9 +5,11 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. Toolchain: torch, CUDA, nvcc and the card's name and power limit.
+1. Toolchain: torch, CUDA, nvcc, g++ (for the native decoder) and the
+   card's name and power limit.
 2. Build: the hand-written kernels from khg_tpu_torch/csrc with nvcc
-   for sm_90a (one nvcc per source, in parallel).
+   for sm_90a (one nvcc per source, in parallel), and the native
+   decoder core from native/khg_native.cc with g++.
 3. Corpus and kernel checks: synthesise 1,024 spoken-digit WAVs and
    build the triphone-bench system (682 single-phone words + SIL, 2,051
    pdfs of 32 Gaussians over 80-dim features), then hold each kernel
@@ -42,6 +44,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    stats fold kernel (the rerun times each launch of both); then the
    same passes through the narrow route (full-P fused loglikes, the
    banded kernel on (B, T, P), the P-wide fold), which must agree.
+8. Stage 3 of the corpus recipe from phase 4's model: 256 new held-out
+   WAVs (their own seed, digit sequences outside the training corpus)
+   -> fbank -> the unigram digit HCLG -> score_held_out (kernel B, one
+   launch per 128-frame bucket) -> decode_held_out (native lattice
+   decoder, threaded, streamed f32 fetch) -> WER, which must be at most
+   5%; decode_dense (kernel G, generic route) on the first 16.  Launch
+   counts are set to 0 just before and read just after.  Scores from
+   B's plain version on the card and a float16 fetch must decode to
+   identical words; decode_dense must give the lattice decoder's words
+   and cost (1e-3 relative); G at the HCLG's shape is held to its plain
+   version and timed.
 
 Prints a ``{"kernels": [...]}`` line, the card's nvidia-smi line, and as
 its last line ``{"ok": true, "device": {...}}``.  It needs one card and
@@ -61,6 +74,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -148,10 +162,10 @@ def event_timed(module, names, calls, describe=banded_shape):
             setattr(module, n, fn)
 
 
-def kernel_device_ms(fn, reps: int, prefix: str):
-    """{kernel: mean device ms per call of fn} over reps calls, for the
-    kernels whose name holds ``prefix``, from a torch.profiler trace
-    (CUPTI); {} where the trace shows no device time."""
+def device_trace_ms(fn, reps: int):
+    """{kernel or copy, as the trace names it: mean device ms per call
+    of fn} over reps calls, from a torch.profiler trace (CUPTI); {}
+    where the trace shows no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -166,9 +180,19 @@ def kernel_device_ms(fn, reps: int, prefix: str):
         us = getattr(e, "device_time_total", None)
         if us is None:
             us = getattr(e, "cuda_time_total", 0.0)
-        found = re.search(r"\b(" + prefix + r"\w*)", e.key)
-        if found and us:
-            out[found.group(1)] = out.get(found.group(1), 0.0) + us / reps / 1e3
+        if us:
+            out[e.key] = out.get(e.key, 0.0) + us / reps / 1e3
+    return out
+
+
+def kernel_device_ms(fn, reps: int, prefix: str):
+    """{kernel: mean device ms per call of fn} over reps calls, for the
+    kernels whose name holds ``prefix`` (device_trace_ms)."""
+    out = {}
+    for key, ms in device_trace_ms(fn, reps).items():
+        found = re.search(r"\b(" + prefix + r"\w*)", key)
+        if found:
+            out[found.group(1)] = out.get(found.group(1), 0.0) + ms
     return out
 
 
@@ -285,6 +309,11 @@ def phase_toolchain():
     log(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
         f"python {sys.version.split()[0]}")
     log(f"nvcc: {release[-1].strip() if release else ver.strip()}")
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the native decoder cannot be built")
+    log("g++: " + subprocess.run([gxx, "--version"], capture_output=True, text=True,
+                                 check=True).stdout.splitlines()[0])
     card = card_line()
     log(card)
     return card
@@ -292,11 +321,23 @@ def phase_toolchain():
 
 def phase_build():
     from khg_tpu_torch import kernels
+    from khg_tpu_torch.fstlib import native
 
-    t0 = time.perf_counter()
-    kernels.lib()
-    secs = time.perf_counter() - t0
+    def timed_native():
+        t0 = time.perf_counter()
+        return native.get_lib(), time.perf_counter() - t0
+
+    # g++ builds the native core while nvcc builds the kernels
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        pending = ex.submit(timed_native)
+        t0 = time.perf_counter()
+        kernels.lib()
+        secs = time.perf_counter() - t0
+        core, native_s = pending.result()
     log(f"build: {secs:.1f} s ({kernels.build_info.get('path')})")
+    if core is None:
+        raise RuntimeError(f"native decoder core: {native.build_error()}")
+    log(f"native decoder core: {native_s:.1f} s ({native.library_path()})")
     for src, out in (kernels.build_info.get("ptxas") or {}).items():
         for ln in out.splitlines():
             if "registers" in ln or "spill" in ln:
@@ -1578,6 +1619,279 @@ def wide_em(tri):
     return launches
 
 
+# ------------------------------------------------------------------ phase 8
+
+HELD_OUT = 256
+HELD_OUT_SEED = 1011
+# the dense decode's utterances, and its cost tolerance against the
+# lattice decoder's best path (relative, as khg_tpu's tests/test_decode.py)
+DENSE_UTTS = 16
+DENSE_RTOL = 1e-3
+MAX_WER = 5.0
+# kernel B against its plain version on the card, over every held-out
+# score, two ways: max |kernel - plain| <= PLAIN_RTOL * max |plain
+# score| (scores reach ~2e4; the two f32 orders of summation left
+# 1.2e-4 and 2.4e-4 on phase 4's models); and at each (frame, pdf),
+# |kernel - plain| <= TERMS_RTOL * the sum of the magnitudes of the
+# terms the score adds (score_terms): two f32 sums of n = 2D + 1 terms
+# differ by at most ~2n 2^-24 (5.6e-6 at D = 23) of it, and the
+# logsumexp over components is 1-Lipschitz, so a correct kernel always
+# passes, while a small constant error shows at the pdfs that match well
+PLAIN_RTOL = 1e-6
+TERMS_RTOL = 1e-5
+
+
+def make_held_out(wav_dir: Path, train_seqs):
+    """HELD_OUT spoken-digit WAVs from their own seed, with digit
+    sequences outside the training corpus, written by the runner's
+    stage-0 worker function, in this process: on an H100 machine's 8
+    cores a spawn pool took 10.9 s (each worker imports torch), this
+    process ~7 s."""
+    import numpy as np
+
+    from khg_tpu_torch.egs.audiomnist_10k import synth_chunk
+    from khg_tpu_torch.recipes.audiomnist import DIGITS, load_audiomnist_corpus
+
+    taken = {tuple(DIGITS.index(w) for w in words) for words in train_seqs}
+    rng = np.random.default_rng(HELD_OUT_SEED)
+    seqs = []
+    while len(seqs) < HELD_OUT:
+        digits = tuple(int(rng.integers(10)) for _ in range(int(rng.integers(3, 8))))
+        if digits not in taken:
+            taken.add(digits)
+            seqs.append(digits)
+    wav_dir.mkdir()
+    synth_chunk((str(wav_dir), seqs, HELD_OUT_SEED + 1))
+    return load_audiomnist_corpus(wav_dir)
+
+
+@contextlib.contextmanager
+def plain_scoring():
+    """While inside, loglikes_fused runs its plain version on the card."""
+    from khg_tpu_torch.gmm import fused_loglikes
+
+    saved = fused_loglikes.loglikes_fused
+    fused_loglikes.loglikes_fused = fused_loglikes.loglikes_plain
+    try:
+        yield
+    finally:
+        fused_loglikes.loglikes_fused = saved
+
+
+def score_terms(am, feats_list):
+    """Per utterance, (T, P): the largest, over the pdf's real
+    components, of |gconst| + sum_d |A_kd x2_td| (A = [mu/var, -1/(2
+    var)], x2 = [x, x^2]): the magnitude of the terms a score sums."""
+    import torch
+
+    from khg_tpu_torch.utils.convert import model_to_torch
+
+    pm = am.pack(mix_pad_to=8)
+    g, m, v = model_to_torch(pm.gconsts, pm.means_invvars, pm.inv_vars, device=DEVICE)
+    P, K, D = m.shape
+    A = torch.cat([m, 0.5 * v], -1).abs().reshape(P * K, 2 * D)
+    ga = torch.where(torch.isfinite(g), g.abs(), 0.0).reshape(P * K)
+    out = []
+    for f in feats_list:
+        x = torch.as_tensor(f, device=DEVICE)
+        x2 = torch.cat([x, x * x], -1).abs()
+        out.append((x2 @ A.T + ga).reshape(-1, P, K).amax(-1))
+    return out
+
+
+def words_of(out):
+    return [d[2] for d in out.decoded]
+
+
+def held_out_decode(res, lp, cfg, corpus, tmp: Path, results):
+    """Stage 3 of the corpus recipe on the card, from phase 4's model:
+    HELD_OUT new WAVs -> fbank (kernel C) -> the unigram digit HCLG ->
+    score_held_out (kernel B, one launch per bucket) -> decode_held_out
+    (native lattice decoder, threaded, f32 streamed fetch) -> WER; and
+    decode_dense (kernel G, generic route) on the first DENSE_UTTS.
+    Launch counts are set to 0 just before and read just after.  Then:
+    the same utterances scored by B's plain version on the card, and
+    fetched in float16, must decode to identical words; G at the HCLG's
+    shape is held to its plain version and timed.  Returns phase 8's
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from khg_tpu_torch import kernels
+    from khg_tpu_torch.align.packed import pack_graph, pack_graph_batch
+    from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain, viterbi_plan
+    from khg_tpu_torch.decode.decoder import decode_dense
+    from khg_tpu_torch.decode.score_stream import stream_scores
+    from khg_tpu_torch.egs.audiomnist_10k import build_decoder, decode_held_out, score_held_out
+    from khg_tpu_torch.gmm import fused_loglikes
+    from khg_tpu_torch.recipes.yesno_wav import extract_features
+    from khg_tpu_torch.utils.convert import batched_graphs_to_torch
+
+    am, tm, tree = res.am, res.transition_model, res.tree
+    id2pdf = tm.id2pdf_array()
+    t0 = time.perf_counter()
+    held = make_held_out(tmp / "held_out", corpus.word_seqs)
+    synth_s = time.perf_counter() - t0
+    refs, ids = held.word_seqs, held.utt_ids
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    feats = extract_features(held, cfg, device=DEVICE).feats
+    fbank_s = time.perf_counter() - t0
+    audio_sec = sum(f.shape[0] for f in feats) / 100.0
+    t0 = time.perf_counter()
+    decoder = build_decoder(lp, tm, tree)
+    hclg_s = time.perf_counter() - t0
+    hclg = decoder.fst
+    in_degree = np.bincount([a.nextstate for arcs in hclg.arcs for a in arcs],
+                            minlength=hclg.num_states)
+    packed = pack_graph_batch([pack_graph(hclg, id2pdf)])
+    _, S, M = packed.in_src.shape
+    log(f"phase 8: {HELD_OUT} held-out WAVs ({audio_sec:.1f} audio-sec, seed "
+        f"{HELD_OUT_SEED}, none in the training corpus) synthesised in {synth_s:.1f} s; "
+        f"fbank {fbank_s:.2f} s")
+    log(f"phase 8 HCLG: {hclg.num_states} states, {hclg.num_arcs} arcs, largest "
+        f"in-degree {int(in_degree.max())}; packed for the dense decode: S={S}, "
+        f"M={M} ({viterbi_plan(S, M)[0]} route of kernel G); built in {hclg_s:.3f} s")
+    calls = {}
+    with event_timed(fused_loglikes, ["loglikes_cuda"], calls,
+                     describe=lambda g, m, v, x, *r: tuple(x.shape)):
+        t0 = time.perf_counter()
+        scores = score_held_out(am, feats, DEVICE)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+    wrapper_ms = [s.elapsed_time(e) for s, e, _ in calls["loglikes_cuda"]]
+    # B's bound over phase 8's launches, real components only (as
+    # check_loglikes counts it): rows in, the packed model, scores out
+    K = am.pack(mix_pad_to=8).gconsts.shape[1]
+    P, real, D = am.num_pdfs, am.num_gauss, am.dim
+    score_bound_ms = sum(
+        bound(N * D * 4 + P * K * (2 * D + 1) * 4 + N * P * 4,
+              2 * N * real * 2 * D + 3 * N * real, FP32_OPS_PER_S)[0]
+        for N in (r * t for (r, t, _d) in (c[2] for c in calls["loglikes_cuda"])))
+    t0 = time.perf_counter()
+    nbytes = sum(a.nbytes for a in stream_scores(scores))
+    transfer_s = time.perf_counter() - t0
+    out = decode_held_out(lp, tm, tree, scores, ids, refs, decoder=decoder)
+    dense = []
+    t0 = time.perf_counter()
+    for u in range(DENSE_UTTS):
+        dense.append(decode_dense(hclg, scores[u], id2pdf, acoustic_scale=2.0,
+                                  device=DEVICE))
+    dense_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    log(f"phase 8 HCLG build: {hclg_s:.3f} s")
+    log(f"phase 8 score: {len(wrapper_ms)} launches of kernel B (P={P}, K={K}, {real} "
+        f"real components, D={D}); the wrapper {sum(wrapper_ms):.3f} ms by CUDA "
+        f"events around each call "
+        f"({', '.join(f'{s}: {ms:.3f}' for (_, _, s), ms in zip(calls['loglikes_cuda'], wrapper_ms))}); "
+        f"wall {score_s:.3f} s")
+    log(f"phase 8 transfer: {nbytes / 1e6:.2f} MB of f32 scores streamed to the host "
+        f"in {transfer_s:.3f} s")
+    log(f"phase 8 decode: {out.decode_s:.3f} s wall (native, threaded, f32 fetch)")
+    stage_s = hclg_s + score_s + out.decode_s
+    log(f"phase 8 stage 3: {stage_s:.3f} s for {audio_sec:.1f} audio-sec "
+        f"({audio_sec / stage_s:.0f} audio-sec/s); WER {out.wer:.2f}%")
+    log(f"phase 8 dense decode: {DENSE_UTTS} utterances in {dense_s:.3f} s")
+    log(f"phase 8 launches: B {launches['fused_loglikes']}, G {launches['viterbi']}; "
+        f"all {launches}")
+    log(out.report.splitlines()[0])
+
+    if out.wer > MAX_WER:
+        raise AssertionError(f"phase 8: WER {out.wer:.2f}% > {MAX_WER}%")
+    if not all(d[0] for d in out.decoded):
+        raise AssertionError("phase 8: an utterance failed to decode")
+    for s, f in zip(scores, feats):
+        if s.shape != (f.shape[0], am.num_pdfs) or not torch.isfinite(s).all():
+            raise AssertionError(f"phase 8: bad scores {tuple(s.shape)}")
+    for k in ("fused_loglikes", "viterbi"):
+        if launches[k] <= 0:
+            raise AssertionError(f"phase 8: kernel {k} never launched")
+
+    with plain_scoring():
+        plain = score_held_out(am, feats, DEVICE)
+    diff = max(float((a - b).abs().max()) for a, b in zip(scores, plain))
+    magnitude = max(float(b.abs().max()) for b in plain)
+    limit = PLAIN_RTOL * magnitude
+    terms_ratio = max(float(((a - b).abs() / t).max())
+                      for a, b, t in zip(scores, plain, score_terms(am, feats)))
+    out_plain = decode_held_out(lp, tm, tree, plain, ids, refs, decoder=decoder)
+    same_plain = words_of(out_plain) == words_of(out)
+    out16 = decode_held_out(lp, tm, tree, scores, ids, refs, decoder=decoder,
+                            fetch_dtype="float16")
+    same16 = words_of(out16) == words_of(out)
+    log(f"phase 8 kernel B vs its plain version on the card: max |diff| of the "
+        f"scores {diff:.3e} (limit {PLAIN_RTOL:g} x max |score| {magnitude:.1f} = "
+        f"{limit:.3e}); at each (frame, pdf) at most {terms_ratio:.2e} of the "
+        f"magnitude of the score's terms (limit {TERMS_RTOL:g}); words identical "
+        f"for every utterance: {same_plain}")
+    log(f"phase 8 float16 fetch: words identical for every utterance: {same16}")
+    if not diff <= limit:
+        raise AssertionError(f"phase 8: kernel B off its plain version by {diff} > {limit}")
+    if not terms_ratio <= TERMS_RTOL:
+        raise AssertionError(f"phase 8: kernel B off its plain version by {terms_ratio} "
+                             f"of the score's terms > {TERMS_RTOL}")
+    if not same_plain:
+        raise AssertionError("phase 8: kernel- and plain-scored words differ")
+    if not same16:
+        raise AssertionError("phase 8: the float16 fetch changed words")
+    worst = 0.0
+    for u, d in enumerate(dense):
+        ok, _tids, words, like = out.decoded[u]
+        if d is None or d[1] != words:
+            raise AssertionError(f"phase 8: decode_dense words differ on utterance {u}")
+        worst = max(worst, abs(d[2] + like) / abs(like))
+    log(f"phase 8 decode_dense vs the lattice best path: words equal on "
+        f"{DENSE_UTTS} utterances; cost within {worst:.2e} relative")
+    if worst > DENSE_RTOL:
+        raise AssertionError(f"phase 8: decode_dense cost off by {worst} relative")
+
+    # G at the HCLG's shape (B = 1), against its plain version, timed
+    g = batched_graphs_to_torch(packed, DEVICE)
+    ll = scores[0][None].contiguous()
+    T, P = ll.shape[1], ll.shape[2]
+    nf = torch.tensor([T], dtype=torch.int32, device=DEVICE)
+    tk, ck = viterbi_cuda(g, ll, nf, 2.0)
+    tp, cp = viterbi_plain(g, ll, nf, 2.0)
+    torch.cuda.synchronize()
+    if not (torch.equal(ck, cp) and torch.equal(tk, tp)):
+        raise AssertionError("phase 8: kernel G at the HCLG shape differs from its plain version")
+    ms = time_ms(lambda: viterbi_cuda(g, ll, nf, 2.0), reps=20)
+    plain_ms = time_ms(lambda: viterbi_plain(g, ll, nf, 2.0), reps=2)
+    serial_ms, chain = serial_bound(T, M, S)
+    plan = viterbi_plan(S, M)
+    results["viterbi"][f"hclg_s{S}_m{M}"] = dict(
+        B=1, S=S, M=M, T=T, P=P, max_frames=T, plan=[plan[0], str(plan[1]), plan[2]],
+        ms=ms, plain_ms=plain_ms, us_per_frame=ms / T * 1e3,
+        serial_bound_ms=serial_ms, serial_chain=chain, phase8_launches=launches["viterbi"],
+    )
+    # B's own device time at phase 8's shapes, from a profiler trace of
+    # whole scoring calls (the events above also hold the wrapper's
+    # preparation launches and the host's gaps between them)
+    trace = device_trace_ms(lambda: score_held_out(am, feats, DEVICE), 5)
+    kernel_ms = sum(ms for k, ms in trace.items() if "fused_loglikes_kernel" in k) or None
+    share = f"{score_bound_ms / kernel_ms:.1%} of bound" if kernel_ms else "not measured"
+    top = sorted(trace.items(), key=lambda kv: -kv[1])[:6]
+    log(f"phase 8 score, device trace of a scoring call: kernel B "
+        f"{kernel_ms or float('nan'):.4f} ms for its {len(wrapper_ms)} launches (bound "
+        f"{score_bound_ms:.4f} ms, {share}); every device op "
+        f"{sum(trace.values()):.4f} ms; largest: "
+        + "; ".join(f"{k[:60]} {ms:.4f}" for k, ms in top))
+    b = results["fused_loglikes"]
+    b["phase8"] = dict(launches=launches["fused_loglikes"], kernel_ms=kernel_ms,
+                       wrapper_ms=wrapper_ms, device_ms_all=sum(trace.values()),
+                       shapes=[list(s) for _, _, s in calls["loglikes_cuda"]],
+                       P=P, K=K, real_components=real, bound_ms=score_bound_ms,
+                       plain_max_abs_diff=diff, plain_max_abs_score=magnitude,
+                       plain_limit=limit, plain_rtol=PLAIN_RTOL,
+                       plain_terms_ratio=terms_ratio, plain_terms_rtol=TERMS_RTOL)
+    log(f"kernel G viterbi at the HCLG: B=1 T={T} S={S} M={M} P={P} ({plan[0]}, "
+        f"{plan[1]} backpointers): bit-equal; {ms:.3f} ms, {ms / T * 1e3:.3f} us per "
+        f"frame (plain {plain_ms:.1f} ms, serial bound {serial_ms:.4f} ms: {chain})")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1657,6 +1971,7 @@ def main() -> int:
         b_launches, g_launches = pallas_backend(res, graphs, feats)
         fb_launches = soft_em(res, graphs, feats)
         w_launches = wide_em(tri)
+        held_out_decode(res, lp, cfg, corpus, Path(tmp), results)
 
     results["banded_viterbi"]["launches"] = launches["banded_viterbi"]
     results["fbank"]["launches"] = launches["fbank"]

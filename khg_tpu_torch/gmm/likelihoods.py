@@ -109,3 +109,21 @@ def loglikes_per_state(
         gconsts, means_invvars, inv_vars, state_pdf, feats
     )
     return torch.logsumexp(scores, dim=-1)
+
+
+def loglikes_np(packed, feats, device=None):
+    """Host wrapper taking a PackedGmm: (T, D) numpy feats -> (T, P) f32
+    numpy log-likelihoods, computed on ``device`` (None means CUDA) by
+    ``gmm/fused_loglikes.loglikes_fused``: the kernel on the card, the
+    plain version on the CPU."""
+    # imported here: fused_loglikes imports this module
+    from khg_tpu_torch.gmm.fused_loglikes import loglikes_fused
+    from khg_tpu_torch.utils.convert import model_to_torch, to_tensor
+    from khg_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    g, m, v = model_to_torch(
+        packed.gconsts, packed.means_invvars, packed.inv_vars, device=dev
+    )
+    x = to_tensor(feats, dev, torch.float32)
+    return loglikes_fused(g, m, v, x).cpu().numpy()

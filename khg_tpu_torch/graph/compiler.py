@@ -57,9 +57,8 @@ class TrainingGraphCompiler:
         disambig_syms: Optional[List[int]] = None,
         opts: TrainingGraphCompilerOptions = TrainingGraphCompilerOptions(),
     ):
-        # always the pure-Python fstlib: the native C++ core is not part
-        # of this package yet (it is pinned equivalent to the Python
-        # fstlib by the reference package's native tests)
+        # always the pure-Python fstlib: the native C++ core
+        # (fstlib/native.py) serves the lattice decoder only so far
         self.trans_model = trans_model
         self.ctx_dep = ctx_dep
         self.opts = opts

@@ -65,11 +65,19 @@ import numpy as np
 from khg_tpu_torch.recipes.corpus_train import train_corpus
 from khg_tpu_torch.recipes.yesno_wav import WavCorpus, extract_features
 from khg_tpu_torch.recipes.pipeline import EStepPipeline
+from khg_tpu_torch.decode.decoder import decode_dense
+from khg_tpu_torch.egs.audiomnist_10k import main as runner_main, score_held_out
+from khg_tpu_torch.fstlib.fst import VectorFst
+from khg_tpu_torch.gmm.likelihoods import loglikes_np
 
 calls = {{
     "train_corpus": lambda: train_corpus(None, [["ONE"]], [np.zeros((5, 3), np.float32)]),
     "extract_features": lambda: extract_features(WavCorpus([], [], [], [])),
     "EStepPipeline": lambda: EStepPipeline(None),
+    "score_held_out": lambda: score_held_out(None, []),
+    "decode_dense": lambda: decode_dense(VectorFst(), np.zeros((2, 3)), np.zeros(2)),
+    "loglikes_np": lambda: loglikes_np(None, np.zeros((2, 3))),
+    "audiomnist_10k": lambda: runner_main(["--exp-dir", {tmp!r}]),
 }}
 for name, call in calls.items():
     try:
@@ -84,13 +92,15 @@ print("BOUNDARY_OK")
 '''
 
 
-def test_imports_and_entry_points_without_jax_or_cuda():
+def test_imports_and_entry_points_without_jax_or_cuda(tmp_path):
     """In a fresh interpreter where jax and khg_tpu cannot be imported
     and CUDA is absent: every port module and chip_smoke import, and
-    train_corpus / extract_features / EStepPipeline called without a
+    train_corpus / extract_features / EStepPipeline / score_held_out /
+    decode_dense / loglikes_np and the staged runner called without a
     device raise instead of running on the CPU."""
     out = subprocess.run(
-        [sys.executable, "-c", _BLOCKED.format(root=str(ROOT))],
+        [sys.executable, "-c", _BLOCKED.format(root=str(ROOT),
+                                               tmp=str(tmp_path / "exp"))],
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr[-3000:]

@@ -716,3 +716,84 @@ def test_segment_sum_is_deterministic_on_card(cuda_device):
     ref = torch.zeros((50, 24, 2), dtype=torch.float64, device=cuda_device)
     ref.index_add_(0, index, src.double())
     assert float((runs[0].double() - ref).abs().max()) <= 5.0
+
+
+def _digit_system(seed):
+    """A digit model (pdfs split to 1-20 components) with its transition
+    model and tree, and the unigram digit HCLG's decoder."""
+    from khg_tpu_torch.egs.audiomnist_10k import build_decoder, digit_lexiconp
+
+    rng = np.random.default_rng(seed)
+    lp = digit_lexiconp()
+    topo = generate_hmm_topo(non_sil_phones=lp.get_non_sil_phone_ids(),
+                             sil_phone=lp.get_sil_phone_id())
+    feats = [rng.standard_normal((400, 23)).astype(np.float32)]
+    tm, tree, am = gmm_init_mono(topo, feats)
+    for p in range(am.num_pdfs):
+        am.split_pdf(p, int(rng.integers(1, 21)), 0.5, rng=rng)
+    return lp, tm, tree, am, build_decoder(lp, tm, tree)
+
+
+def test_decode_dense_hclg_generic_kernel(cuda_device):
+    """decode_dense over the unigram digit HCLG (161 states, 12 incoming
+    arcs a state once packed: kernel G's generic route) at B = 1: the
+    kernel's tids and cost bit-equal to viterbi_plain on the same packed
+    tables, and decode_dense on the card equal to decode_dense on the
+    CPU."""
+    from khg_tpu_torch import kernels
+    from khg_tpu_torch.align.viterbi_kernel import viterbi_plan
+    from khg_tpu_torch.decode.decoder import decode_dense
+    from khg_tpu_torch.utils.convert import batched_graphs_to_torch
+
+    _lp, tm, _tree, _am, decoder = _digit_system(11)
+    id2pdf = tm.id2pdf_array()
+    packed = pack_graph_batch([pack_graph(decoder.fst, id2pdf)])
+    B, S, M = packed.in_src.shape
+    assert (B, S, M) == (1, 161, 12)
+    assert viterbi_plan(S, M)[0] == "generic"
+    rng = np.random.default_rng(12)
+    graphs = batched_graphs_to_torch(packed, cuda_device)
+    for T in (1, 37, 300):
+        ll_np = (-30 + 6 * rng.standard_normal((T, tm.num_pdfs))).astype(np.float32)
+        ll = torch.as_tensor(ll_np, device=cuda_device)[None]
+        nf = torch.tensor([T], dtype=torch.int32, device=cuda_device)
+        tk, ck = viterbi_cuda(graphs, ll, nf, 2.0)
+        tp, cp = viterbi_plain(graphs, ll, nf, 2.0)
+        torch.cuda.synchronize()
+        assert torch.equal(ck, cp) and torch.equal(tk, tp)
+        before = kernels.LAUNCHES["viterbi"]
+        card = decode_dense(decoder.fst, ll_np, id2pdf, acoustic_scale=2.0,
+                            device=cuda_device)
+        assert kernels.LAUNCHES["viterbi"] == before + 1
+        host = decode_dense(decoder.fst, ll_np, id2pdf, acoustic_scale=2.0,
+                            device="cpu")
+        assert card == host
+        if T > 1:
+            assert card is not None and card[0] == tk[0].cpu().tolist()
+            assert card[2] == float(ck[0])
+
+
+def test_score_held_out_kernel(cuda_device, monkeypatch):
+    """score_held_out on the card (one kernel B launch per 128-frame
+    bucket) against the same buckets scored by B's plain version on the
+    card, at 1e-4 as test_loglikes_kernel holds B; every utterance keeps
+    its own frames."""
+    from khg_tpu_torch import kernels
+    from khg_tpu_torch.egs.audiomnist_10k import score_held_out
+    from khg_tpu_torch.gmm import fused_loglikes
+
+    _lp, _tm, _tree, am, _decoder = _digit_system(13)
+    rng = np.random.default_rng(14)
+    lens = [1, 127, 128, 129, 300, 301, 512, 90, 64, 250, 257, 33]
+    feats = [rng.standard_normal((n, 23)).astype(np.float32) for n in lens]
+    before = kernels.LAUNCHES["fused_loglikes"]
+    got = score_held_out(am, feats, cuda_device)
+    buckets = {-(-n // 128) for n in lens}
+    assert kernels.LAUNCHES["fused_loglikes"] == before + len(buckets)
+    monkeypatch.setattr(fused_loglikes, "loglikes_fused", fused_loglikes.loglikes_plain)
+    ref = score_held_out(am, feats, cuda_device)
+    torch.cuda.synchronize()
+    for n, g, r in zip(lens, got, ref):
+        assert g.shape == (n, am.num_pdfs) and g.device.type == "cuda"
+        assert torch.isfinite(g).all()
+        assert float((g - r).abs().max()) <= 1e-4
