@@ -55,6 +55,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    identical words; decode_dense must give the lattice decoder's words
    and cost (1e-3 relative); G at the HCLG's shape is held to its plain
    version and timed.
+9. The yesno recipe (egs/yesno_wav/run.py's defaults) through the port's
+   runner khg_tpu_torch.egs.yesno_wav, in this process: 60 synthesized
+   WAVs -> fbank (kernel C) -> train_yesno, 30 passes with Viterbi
+   realignment (kernel G) and mix-up to 300 Gaussians on the 30
+   training WAVs -> the test half scored by kernel B and decoded over
+   the yes/no HCLG -> WER, which must be at most 25%; then again with
+   --speed-perturb (90 training utterances).  Launch counts are set to
+   0 just before and read just after the two runs; the log-likelihood
+   must rise and no alignment may fail.  Then kernel C on the
+   speed-perturbed waves (non-integer samples: the sixth product) and
+   MFCC + deltas on C are held to C's plain version, B's scores to its
+   plain version, and one realignment batch on G to G's plain version.
 
 Prints a ``{"kernels": [...]}`` line, the card's nvidia-smi line, and as
 its last line ``{"ok": true, "device": {...}}``.  It needs one card and
@@ -68,6 +80,7 @@ import contextlib
 import copy
 import json
 import math
+import pickle
 import re
 import shutil
 import subprocess
@@ -698,12 +711,9 @@ def fbank_case(rows, cfg, reps):
 
     from khg_tpu_torch.features.fbank import num_frames
     from khg_tpu_torch.features.fbank_kernel import (
-        FRAMES,
         _padded_wave,
         fbank_cuda,
         fbank_plain,
-        fbank_plan,
-        split_tf32,
     )
 
     B, n = rows.shape
@@ -723,13 +733,24 @@ def fbank_case(rows, cfg, reps):
                              f"(energy {err_e}) > 1e-3")
     ms = time_ms(lambda: fbank_cuda(padded, cfg, T), reps=reps)
     plain_ms = time_ms(lambda: fbank_plain(padded, cfg, T), reps=reps)
+    return padded, T, err, err_e, ms, plain_ms, sixth_product(padded, cfg, T)[1]
+
+
+def sixth_product(padded, cfg, T):
+    """(blocks, frames) of kernel C's launch on ``padded`` that take the
+    sixth product: blocks of FRAMES frames whose wave span has a sample
+    with a third TF32 part, and their frames."""
+    from khg_tpu_torch.features.fbank_kernel import FRAMES, fbank_plan, split_tf32
+
     plan = fbank_plan(cfg)
     lo = split_tf32(padded.cpu().numpy())[2] != 0
-    lo_frames = 0
+    blocks = frames = 0
     for t0 in range(0, T, FRAMES):
         span = lo[:, t0 * cfg.frame_shift:(t0 + plan.rows) * cfg.frame_shift]
-        lo_frames += int(span.any(1).sum()) * min(FRAMES, T - t0)
-    return padded, T, err, err_e, ms, plain_ms, lo_frames
+        n = int(span.any(1).sum())
+        blocks += n
+        frames += n * min(FRAMES, T - t0)
+    return blocks, frames
 
 
 def fbank_bound(cfg, B, T, n, lo_frames):
@@ -1892,6 +1913,222 @@ def held_out_decode(res, lp, cfg, corpus, tmp: Path, results):
     return launches
 
 
+# ------------------------------------------------------------------ phase 9
+
+YESNO_MAX_WER = 25.0
+
+
+@contextlib.contextmanager
+def counted_alignments():
+    """While inside, every EStepPipeline.align_and_accumulate call adds
+    its failures and utterances to the yielded dict."""
+    from khg_tpu_torch.recipes.pipeline import EStepPipeline
+
+    seen = {"calls": 0, "utts": 0, "failed": 0}
+    real = EStepPipeline.align_and_accumulate
+
+    def spy(self, am, packed, feats, *a, **k):
+        out = real(self, am, packed, feats, *a, **k)
+        seen["calls"] += 1
+        seen["utts"] += len(feats)
+        seen["failed"] += out.num_error
+        return out
+
+    EStepPipeline.align_and_accumulate = spy
+    try:
+        yield seen
+    finally:
+        EStepPipeline.align_and_accumulate = real
+
+
+def fbank_fused_plain(waves, cfg):
+    """fbank_fused with kernel C's plain version, on the card."""
+    import torch
+
+    from khg_tpu_torch.features.fbank import num_frames
+    from khg_tpu_torch.features.fbank_kernel import _padded_wave, fbank_plain
+
+    T = num_frames(cfg, waves.shape[-1])
+    feats, energy = fbank_plain(_padded_wave(waves, cfg, T), cfg, T)
+    return torch.cat([energy[..., None], feats], -1) if cfg.use_energy else feats
+
+
+def yesno_recipe(tmp: Path, results):
+    """egs/yesno_wav/run.py's recipe on the card through the port's
+    runner (khg_tpu_torch.egs.yesno_wav), in this process, at run.py's
+    defaults: 60 synthesized WAVs (30/30 split), 23 mel bins, 300
+    Gaussians, 30 passes on train_yesno's realign schedule; then again
+    from the same WAVs with --speed-perturb (90 training utterances).
+    Launch counts are set to 0 just before the first run and read just
+    after the second.  Then: C on the speed-perturbed training waves
+    against its plain version (1e-3; blocks with a third TF32 part take
+    the sixth product), MFCC + deltas over the 60 WAVs on C against the
+    plain version (C's 1e-3 carried through the lifted DCT and the delta
+    taps), B's test-half scores against its plain version (phase 8's
+    PLAIN_RTOL and TERMS_RTOL), one align_and_accumulate batch on G
+    against G's plain version (tids equal, costs bit-equal)."""
+    import numpy as np
+    import torch
+
+    from khg_tpu_torch import kernels
+    from khg_tpu_torch.align import viterbi_kernel
+    from khg_tpu_torch.data.wav import read_wav
+    from khg_tpu_torch.egs import yesno_wav as runner
+    from khg_tpu_torch.egs.audiomnist_10k import score_held_out
+    from khg_tpu_torch.features import mfcc
+    from khg_tpu_torch.features.delta import DeltaConfig, delta_scales
+    from khg_tpu_torch.features.fbank import FbankConfig
+    from khg_tpu_torch.features.fbank_kernel import FRAMES
+    from khg_tpu_torch.features.mfcc import MfccConfig, lifted_dct_matrix
+    from khg_tpu_torch.features.resample import speed_perturb_corpus
+    from khg_tpu_torch.recipes.pipeline import EStepPipeline
+    from khg_tpu_torch.recipes.yesno_wav import extract_features, load_yesno_corpus
+
+    plain_dir, sp_dir = tmp / "yesno_wav", tmp / "yesno_wav_sp"
+    kernels.reset_launch_counts()
+    with counted_alignments() as seen:
+        t0 = time.perf_counter()
+        out = runner.main(["--exp-dir", str(plain_dir), "--device", DEVICE])
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out_sp = runner.main(["--exp-dir", str(sp_dir), "--device", DEVICE,
+                              "--waves-dir", str(plain_dir / "waves"),
+                              "--speed-perturb"])
+        sp_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for name, o, wall in (("plain", out, plain_s), ("speed-perturbed", out_sp, sp_s)):
+        ll = o["train"].avg_loglikes
+        log(f"phase 9 yesno_wav {name}: {o['num_train']} training utterances, "
+            f"{len(ll) - 1} passes, {o['train'].info['number_of_gaussians']} "
+            f"Gaussians; avg log-like {ll[0]:.3f} -> {ll[-1]:.3f}; "
+            f"{o['decode'].report.splitlines()[0]}; {wall:.2f} s wall; stages (s): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in o["timings"].items()))
+    log(f"phase 9 realignments: {seen['calls']} align_and_accumulate calls over "
+        f"{seen['utts']} utterances, {seen['failed']} failed")
+    log(f"phase 9 launches: C {launches['fbank']}, G {launches['viterbi']}, "
+        f"B {launches['fused_loglikes']}; all {launches}")
+    for name, o in (("plain", out), ("speed-perturbed", out_sp)):
+        ll = o["train"].avg_loglikes
+        if not ll[-1] > ll[0] + 1.0 or not all(np.isfinite(ll)):
+            raise AssertionError(f"phase 9 {name}: avg log-likelihood did not rise: {ll}")
+        if o["decode"].wer > YESNO_MAX_WER:
+            raise AssertionError(f"phase 9 {name}: test WER {o['decode'].wer:.2f}% > "
+                                 f"{YESNO_MAX_WER}%")
+    if out_sp["num_train"] != 90 or out["num_train"] != 30:
+        raise AssertionError("phase 9: training sets are not 30 and 90 utterances")
+    if seen["failed"] or not seen["calls"]:
+        raise AssertionError(f"phase 9: {seen['failed']} alignment failures in "
+                             f"{seen['calls']} realignments")
+    for k in ("fbank", "viterbi", "fused_loglikes"):
+        if launches[k] <= 0:
+            raise AssertionError(f"phase 9: kernel {k} never launched")
+
+    # C on the speed-perturbed training waves (non-integer samples), padded
+    # to one length as extract_features pads a bucket
+    cfg = FbankConfig(sample_rate=8000, num_mel_bins=23)
+    corpus = load_yesno_corpus(plain_dir / "waves")
+    train = [read_wav(p)[0] for p in corpus.wav_paths[:30]]
+    sp_waves, _src = speed_perturb_corpus(train, 8000, device=DEVICE)
+    n = max(map(len, sp_waves))
+    rows = np.stack([np.pad(w, (0, n - len(w)), mode="symmetric")
+                     for w in sp_waves]).astype(np.float32)
+    padded, T, err, err_e, ms, plain_ms, lo_frames = fbank_case(rows, cfg, reps=10)
+    lo_blocks = sixth_product(padded, cfg, T)[0]
+    blocks = len(rows) * -(-T // FRAMES)
+    b_ms, b_by = fbank_bound(cfg, len(rows), T, n, lo_frames)
+    log(f"phase 9 kernel C on the speed-perturbed training waves: B={len(rows)} "
+        f"T={T} ({lo_blocks} of {blocks} blocks, {lo_frames} of {len(rows) * T} "
+        f"frames, take the sixth product): err "
+        f"{err:.2e} (energy {err_e:.2e}), limit 1e-3; {ms:.4f} ms (plain "
+        f"{plain_ms:.3f}, bound {b_ms:.4f} {b_by})")
+    if lo_blocks <= 0:
+        raise AssertionError("phase 9: no block of the perturbed waves took the sixth product")
+
+    # MFCC + deltas over the 60 WAVs: C against its plain version
+    mcfg = MfccConfig(fbank=cfg)
+    dcfg = DeltaConfig(order=2)
+    got = extract_features(load_yesno_corpus(plain_dir / "waves"), cfg,
+                           feature_type="mfcc", delta_order=2, device=DEVICE).feats
+    saved = mfcc.fbank_fused
+    mfcc.fbank_fused = fbank_fused_plain
+    try:
+        ref = extract_features(load_yesno_corpus(plain_dir / "waves"), cfg,
+                               feature_type="mfcc", delta_order=2, device=DEVICE).feats
+    finally:
+        mfcc.fbank_fused = saved
+    dct_l1 = float(np.abs(lifted_dct_matrix(mcfg)).sum(0).max())
+    taps_l1 = max(float(np.abs(t).sum()) for t in delta_scales(dcfg))
+    mfcc_limit = 1e-3 * dct_l1 * taps_l1
+    mfcc_err = max(float(np.abs(a - b).max()) for a, b in zip(got, ref))
+    log(f"phase 9 MFCC + deltas (39 dims) over {len(got)} WAVs on kernel C vs its "
+        f"plain version: max |diff| {mfcc_err:.3e}, limit {mfcc_limit:.3e} (1e-3 x "
+        f"lifted-DCT row L1 {dct_l1:.3f} x delta taps L1 {taps_l1:.3f})")
+    if not mfcc_err <= mfcc_limit or any(a.shape != b.shape or a.shape[1] != 39
+                                         for a, b in zip(got, ref)):
+        raise AssertionError(f"phase 9: MFCC + deltas off by {mfcc_err} > {mfcc_limit}")
+
+    # B on the test half, from the plain run's final model
+    with open(plain_dir / "feats.pkl", "rb") as f:
+        feats = pickle.load(f)["corpus"].feats
+    test = [feats[i] for i in out["test_ids"]]
+    am = out["train"].am
+    scores = score_held_out(am, test, DEVICE)
+    with plain_scoring():
+        plain = score_held_out(am, test, DEVICE)
+    diff = max(float((a - b).abs().max()) for a, b in zip(scores, plain))
+    magnitude = max(float(b.abs().max()) for b in plain)
+    terms_ratio = max(float(((a - b).abs() / t).max())
+                      for a, b, t in zip(scores, plain, score_terms(am, test)))
+    log(f"phase 9 kernel B vs its plain version on the test half: max |diff| "
+        f"{diff:.3e} (limit {PLAIN_RTOL:g} x {magnitude:.1f}); at most "
+        f"{terms_ratio:.2e} of the terms' magnitude (limit {TERMS_RTOL:g})")
+    if not diff <= PLAIN_RTOL * magnitude or not terms_ratio <= TERMS_RTOL:
+        raise AssertionError(f"phase 9: kernel B off its plain version ({diff}, "
+                             f"{terms_ratio})")
+
+    # one align_and_accumulate batch on G against G's plain version
+    res = out["train"]
+    pipe = EStepPipeline(res.transition_model, acoustic_scale=0.1,
+                         self_loop_scale=0.1, device=DEVICE)
+    packed = pipe.pack_graphs(res.graphs)
+    train_feats = feats[:30]
+    idx = sorted(range(30), key=lambda i: train_feats[i].shape[0])
+    gconsts, miv, iv = pipe._pack_model(res.am)
+    bfeats, lens, _bt = pipe._batch_feats(idx, train_feats)
+    graphs, banded, _sp = pipe._batch_graphs(idx, packed)
+    kernel_res, _, _ = pipe._align_batch(gconsts, miv, iv, bfeats, lens, graphs, banded)
+    saved = viterbi_kernel.viterbi_cuda
+    viterbi_kernel.viterbi_cuda = viterbi_kernel.viterbi_plain
+    try:
+        plain_res, _, _ = pipe._align_batch(gconsts, miv, iv, bfeats, lens, graphs,
+                                            banded)
+    finally:
+        viterbi_kernel.viterbi_cuda = saved
+    torch.cuda.synchronize()
+    tids_equal = torch.equal(kernel_res.tids, plain_res.tids)
+    cost_equal = torch.equal(kernel_res.total_cost, plain_res.total_cost)
+    B, S, M = graphs.in_src.shape
+    log(f"phase 9 kernel G on one align_and_accumulate batch (B={B}, T="
+        f"{bfeats.shape[1]}, S={S}, M={M}, {viterbi_kernel.viterbi_plan(S, M)[0]} "
+        f"route) vs its plain version: tids equal {tids_equal}, costs bit-equal "
+        f"{cost_equal}")
+    if not (tids_equal and cost_equal):
+        raise AssertionError("phase 9: kernel G differs from its plain version")
+
+    results["fbank"]["phase9"] = dict(
+        launches=launches["fbank"], speed_perturbed=dict(
+            B=len(rows), T=T, max_abs_err=err, energy_max_abs_err=err_e, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            lo_product_blocks=lo_blocks, blocks=blocks, lo_product_frames=lo_frames),
+        mfcc_deltas=dict(max_abs_err=mfcc_err, limit=mfcc_limit))
+    results["viterbi"]["phase9"] = dict(launches=launches["viterbi"], B=B, S=S, M=M,
+                                        bit_equal=True)
+    results["fused_loglikes"]["phase9"] = dict(
+        launches=launches["fused_loglikes"], plain_max_abs_diff=diff,
+        plain_terms_ratio=terms_ratio)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1972,6 +2209,9 @@ def main() -> int:
         fb_launches = soft_em(res, graphs, feats)
         w_launches = wide_em(tri)
         held_out_decode(res, lp, cfg, corpus, Path(tmp), results)
+        t0 = time.perf_counter()
+        yesno_recipe(Path(tmp), results)
+        log(f"phase 9: {time.perf_counter() - t0:.1f} s")
 
     results["banded_viterbi"]["launches"] = launches["banded_viterbi"]
     results["fbank"]["launches"] = launches["fbank"]

@@ -150,8 +150,9 @@ def score_held_out(am, feats_list: Sequence[np.ndarray], device=None):
     return out
 
 
-def build_decoder(lp, tm, tree):
-    """The unigram digit HCLG and a native lattice decoder over it."""
+def build_decoder(lp, tm, tree, arpa: Optional[str] = None):
+    """The HCLG of ``arpa`` (default: the unigram digit LM) and a native
+    lattice decoder over it."""
     from khg_tpu_torch.decode.arpa import arpa_to_fst
     from khg_tpu_torch.decode.graph import build_hclg
     from khg_tpu_torch.decode.lattice import (
@@ -159,7 +160,7 @@ def build_decoder(lp, tm, tree):
         LatticeFasterDecoderConfig,
     )
 
-    G = arpa_to_fst(digit_unigram_arpa(), lp.word2id)
+    G = arpa_to_fst(digit_unigram_arpa() if arpa is None else arpa, lp.word2id)
     hclg = build_hclg(lp, G, tm, tree)
     return LatticeFasterDecoder(
         hclg, LatticeFasterDecoderConfig(beam=BEAM, lattice_beam=LATTICE_BEAM),
@@ -180,17 +181,20 @@ def decode_held_out(
     lp, tm, tree, scores, utt_ids: Sequence[str],
     refs: Sequence[Sequence[str]], decoder=None,
     fetch_dtype: Optional[str] = None,
+    arpa: Optional[str] = None,
+    label: str = "audiomnist_10k_test",
 ) -> HeldOutDecode:
     """Decode per-utterance device scores (``score_held_out``) over the
-    unigram digit HCLG: the native LatticeFasterDecoder (beam 40,
-    lattice beam 6) at acoustic scale 2, fed by streamed device->host
-    copies (``fetch_dtype`` None: f32), then the WER report.  Builds the
-    decoder unless one is given (``build_decoder``)."""
+    HCLG of ``arpa`` (default: the unigram digit LM): the native
+    LatticeFasterDecoder (beam 40, lattice beam 6) at acoustic scale 2,
+    fed by streamed device->host copies (``fetch_dtype`` None: f32),
+    then the WER report under ``label``.  Builds the decoder unless one
+    is given (``build_decoder``)."""
     from khg_tpu_torch.decode.score_stream import decode_scores_streamed
     from khg_tpu_torch.decode.wer import write_error_stats
 
     if decoder is None:
-        decoder = build_decoder(lp, tm, tree)
+        decoder = build_decoder(lp, tm, tree, arpa)
     t0 = time.perf_counter()
     decoded = decode_scores_streamed(
         decoder, scores, tm.id2pdf_array(), acoustic_scale=ACOUSTIC_SCALE,
@@ -200,7 +204,7 @@ def decode_held_out(
             for ok, _tids, words, _like in decoded]
     buf = io.StringIO()
     wer = write_error_stats(
-        buf, "audiomnist_10k_test", list(zip(utt_ids, refs, hyps)),
+        buf, label, list(zip(utt_ids, refs, hyps)),
         enable_log=False,
     )
     return HeldOutDecode(decoded, hyps, wer, buf.getvalue(),

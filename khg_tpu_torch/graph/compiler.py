@@ -56,13 +56,22 @@ class TrainingGraphCompiler:
         lex_fst: VectorFst,
         disambig_syms: Optional[List[int]] = None,
         opts: TrainingGraphCompilerOptions = TrainingGraphCompilerOptions(),
+        use_native: Optional[bool] = None,
     ):
-        # always the pure-Python fstlib: the native C++ core
-        # (fstlib/native.py) serves the lattice decoder only so far
+        """``use_native``: compose, determinize-star and minimize on the
+        native C++ FST core (fstlib/native.py); None means whenever its
+        library builds and loads.  Its graphs equal the pure-Python
+        fstlib's arc for arc, with weights rounded to f32."""
         self.trans_model = trans_model
         self.ctx_dep = ctx_dep
         self.opts = opts
         self.disambig_syms = sorted(set(disambig_syms or []))
+
+        from khg_tpu_torch.fstlib import native as native_mod
+
+        if use_native is None:
+            use_native = native_mod.available()
+        self._native = native_mod if (use_native and native_mod.available()) else None
 
         phone_syms = trans_model.phones
         for d in self.disambig_syms:
@@ -109,16 +118,23 @@ class TrainingGraphCompiler:
             transition_scale=self.opts.transition_scale,
         )
         H.arcsort("olabel")
-        trans2word_fst = compose(H, ctx2word_fst)
+        compose_fn = self._native.compose if self._native else compose
+        det_fn = (
+            self._native.determinize_star if self._native else determinize_star
+        )
+        min_fn = (
+            self._native.minimize_encoded if self._native else minimize_encoded
+        )
+        trans2word_fst = compose_fn(H, ctx2word_fst)
         assert trans2word_fst.start != -1
 
         # Epsilon removal + determinization, summing in the log semiring.
-        trans2word_fst = determinize_star(trans2word_fst, semiring="log")
+        trans2word_fst = det_fn(trans2word_fst, semiring="log")
 
         if disambig_syms_h:
             remove_input_symbols(disambig_syms_h, trans2word_fst)
 
-        trans2word_fst = minimize_encoded(trans2word_fst)
+        trans2word_fst = min_fn(trans2word_fst)
 
         trans2word_fst = add_self_loops(
             self.trans_model,

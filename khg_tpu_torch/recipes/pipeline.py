@@ -21,6 +21,13 @@ and the device world (padded dense tensors, CUDA kernels):
   5. per pass: dense M-step and transition update on the device; the
      host fetches one record block at the end of a multi-pass stretch.
 
+The host-driven E-steps of khg_tpu's loop run here too:
+``align_and_accumulate`` (Viterbi alignments back to the host, with or
+without per-batch stats; the realignment of recipes/yesno.train_yesno)
+and ``em_pass_resident`` (one carry pass + the device M-step, the
+transition update left to the host), on graphs that already carry the
+transition probs.
+
 Carry layout (one flat f32 vector):
   [occ (P*K), mean_acc (P*K*D), var_acc (P*K*D), tot_log_like,
    tot_frames, tid_counts (num_tids+1), like_sum, num_done, num_error,
@@ -89,18 +96,24 @@ def _carry_width(P: int, K: int, D: int, num_tids: int) -> int:
     return P * K * (2 * D + 1) + 2 + (num_tids + 1) + 4
 
 
-def _unpack_carry(flat: np.ndarray, P: int, K: int, D: int, num_tids: int):
-    """Host-side inverse of the carry layout (see module docstring)."""
+def _unpack_stats(flat: np.ndarray, P: int, K: int, D: int):
+    """Host-side (occ, mean_acc, var_acc, tot_log_like, tot_frames) of
+    packed GMM stats (a batch's, or the head of a carry)."""
     pk, pkd = P * K, P * K * D
     occ = flat[:pk].reshape(P, K)
     mean_acc = flat[pk : pk + pkd].reshape(P, K, D)
     var_acc = flat[pk + pkd : pk + 2 * pkd].reshape(P, K, D)
-    base = pk + 2 * pkd
-    tot_ll, tot_frames = flat[base : base + 2]
-    counts = flat[base + 2 : base + 3 + num_tids].astype(np.float64)
-    like_sum, num_done, num_error, frame_count = flat[base + 3 + num_tids :]
+    tot_log_like, tot_frames = flat[pk + 2 * pkd :]
+    return occ, mean_acc, var_acc, float(tot_log_like), float(tot_frames)
+
+
+def _unpack_carry(flat: np.ndarray, P: int, K: int, D: int, num_tids: int):
+    """Host-side inverse of the carry layout (see module docstring)."""
+    base = P * K * (2 * D + 1) + 2
+    counts = flat[base : base + 1 + num_tids].astype(np.float64)
+    like_sum, num_done, num_error, frame_count = flat[base + 1 + num_tids :]
     return (
-        occ, mean_acc, var_acc, float(tot_ll), float(tot_frames), counts,
+        *_unpack_stats(flat[:base], P, K, D), counts,
         float(like_sum), int(round(float(num_done))),
         int(round(float(num_error))), int(round(float(frame_count))),
     )
@@ -115,19 +128,17 @@ def _kahan_add(carry, comp, x):
     return t, (t - carry) - y
 
 
-def _carry_fold(
-    gconsts, miv, iv, bfeats, tids, lens, failed, id2pdf, total_cost,
-    carry, comp, scores=None, state_pdf=None,
-):
-    """Fold one aligned batch's stats into the carry.  ``scores`` are
-    the batch's component scores when scoring already computed them.
-    Pass ``state_pdf`` (B, S) on wide models to fold through each
-    utterance's graph states (stats/fold_kernel.py): O(S) not O(P)."""
+def _hard_stats(gconsts, miv, iv, bfeats, tids, lens, failed, id2pdf,
+                scores=None, state_pdf=None):
+    """(GMM stats, frame weights (B, T)) of one aligned batch, failed
+    utterances weighted 0.  ``scores`` are the batch's component scores
+    when scoring already computed them.  Pass ``state_pdf`` (B, S) on
+    wide models to fold through each utterance's graph states
+    (stats/fold_kernel.py): O(S) not O(P)."""
     T = bfeats.shape[1]
     dev = bfeats.device
-    ok = ~failed
     fw = (
-        (torch.arange(T, device=dev)[None, :] < lens[:, None]) & ok[:, None]
+        (torch.arange(T, device=dev)[None, :] < lens[:, None]) & ~failed[:, None]
     ).to(torch.float32)
     if state_pdf is not None:
         s = accumulate_am_stats_fold(
@@ -137,13 +148,64 @@ def _carry_fold(
         s = accumulate_am_stats(
             gconsts, miv, iv, bfeats, id2pdf[tids.long()], fw, scores=scores
         )
+    return s, fw
+
+
+def _carry_fold(
+    gconsts, miv, iv, bfeats, tids, lens, failed, id2pdf, total_cost,
+    carry, comp, scores=None, state_pdf=None,
+):
+    """Fold one aligned batch's stats (``_hard_stats``) and transition
+    counts into the carry."""
+    s, fw = _hard_stats(gconsts, miv, iv, bfeats, tids, lens, failed, id2pdf,
+                        scores=scores, state_pdf=state_pdf)
     # transition counts: frame weights added per tid (tid 0 = padding)
     counts = segment_sum(fw.reshape(-1), tids.long().reshape(-1), id2pdf.shape[0])
     counts[0] = 0.0
-    okf = ok.to(torch.float32)
+    okf = (~failed).to(torch.float32)
     x = _carry_row(s, counts, torch.sum(-total_cost * okf), failed,
                    torch.sum(lens.to(torch.float32) * okf))
     return _kahan_add(carry, comp, x)
+
+
+def _split_carry(carry, P: int, K: int, D: int, num_tids: int):
+    """(occ, mean_acc, var_acc, [tot_log_like, tot_frames], tid counts,
+    [like_sum, num_done, num_error, frame_count]): views of a device
+    carry (layout in the module docstring)."""
+    pk, pkd = P * K, P * K * D
+    off = pk + 2 * pkd
+    return (
+        carry[:pk].reshape(P, K),
+        carry[pk : pk + pkd].reshape(P, K, D),
+        carry[pk + pkd : off].reshape(P, K, D),
+        carry[off : off + 2],
+        carry[off + 2 : off + 3 + num_tids],
+        carry[off + 3 + num_tids :],
+    )
+
+
+def _start_fetch(tensors):
+    """Issue device->host copies of ``tensors``: on CUDA each into
+    pinned memory, non-blocking, behind one recorded event; CPU tensors
+    are already host memory.  ``_finish_fetch`` waits and returns
+    numpy arrays."""
+    if tensors[0].device.type != "cuda":
+        return tensors, None
+    hosts = []
+    for x in tensors:
+        h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        h.copy_(x, non_blocking=True)
+        hosts.append(h)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(tensors[0].device))
+    return hosts, event
+
+
+def _finish_fetch(fetch):
+    hosts, event = fetch
+    if event is not None:
+        event.synchronize()
+    return [h.numpy() for h in hosts]
 
 
 def _carry_row(s, counts, like_sum, failed, frame_count):
@@ -175,6 +237,21 @@ def _soft_carry_fold(gconsts, miv, iv, bfeats, fb: FBResult, carry, comp,
     x = _carry_row(s, counts, torch.sum(torch.where(ok, fb.log_z, 0.0)),
                    fb.failed, torch.zeros((), device=carry.device))
     return _kahan_add(carry, comp, x)
+
+
+@dataclasses.dataclass
+class AlignmentResult:
+    """Host-side alignment outcome for a batch of utterances.
+
+    ``alignments`` is None when the pass ran with
+    ``return_alignments=False`` (stats-only carry mode: the tid
+    sequences never leave the device)."""
+
+    alignments: Optional[List[Optional[List[int]]]]  # per utt tids (None = failed)
+    tot_like: float  # sum over utts of -(graph+acoustic)/acoustic_scale
+    num_done: int
+    num_error: int
+    frame_count: int
 
 
 class EStepPipeline:
@@ -476,51 +553,58 @@ class EStepPipeline:
         ll = torch.logsumexp(scores, dim=-1)
         return ll, (scores if dtype is None else None)
 
-    def _estep_batch(self, gconsts, miv, iv, bfeats, lens, graphs, banded,
-                     state_pdf, delta, carry, comp):
-        """Scoring + Viterbi (with the current cost deltas) + stats fold
-        of one batch.  A banded batch of a wide model scores each graph
-        state in f32 whatever the likelihood backend (as khg_tpu does),
-        aligns on that lattice and folds its stats through the graph
-        states.  ``state_pdf`` is the soft step's (dense FB); the hard
-        step's Viterbi selects per arc."""
+    def _align_batch(self, gconsts, miv, iv, bfeats, lens, graphs, banded,
+                     delta=None):
+        """Scoring + Viterbi of one batch, with the cost deltas added
+        when given (``None``: the graphs already carry the transition
+        probs).  Returns (ViterbiResult, component scores or None,
+        state_pdf or None): a banded batch of a wide model scores each
+        graph state in f32 whatever the likelihood backend (as khg_tpu
+        does), aligns on that lattice, and hands back the graph states
+        its stats fold through."""
         wide = self._is_wide()
-        if banded is not None and wide:
-            tables, offsets = banded
-            tables = tables._replace(
-                plane_cost=tables.plane_cost + delta[tables.plane_tid.long()]
-            )
-            sac = loglikes_per_state(gconsts, miv, iv, tables.state_pdf, bfeats)
-            res = viterbi_align_banded(
-                tables, offsets, None, lens, self._id2pdf_t,
-                acoustic_scale=self.acoustic_scale, sac=sac,
-            )
-            return _carry_fold(
-                gconsts, miv, iv, bfeats, res.tids, lens, res.failed,
-                self._id2pdf_t, res.total_cost, carry, comp,
-                state_pdf=tables.state_pdf,
-            )
-        ll, scores = self._score(gconsts, miv, iv, bfeats, wide)
         if banded is not None:
             tables, offsets = banded
-            tables = tables._replace(
-                plane_cost=tables.plane_cost + delta[tables.plane_tid.long()]
-            )
+            if delta is not None:
+                tables = tables._replace(
+                    plane_cost=tables.plane_cost + delta[tables.plane_tid.long()]
+                )
+            if wide:
+                sac = loglikes_per_state(gconsts, miv, iv, tables.state_pdf, bfeats)
+                res = viterbi_align_banded(
+                    tables, offsets, None, lens, self._id2pdf_t,
+                    acoustic_scale=self.acoustic_scale, sac=sac,
+                )
+                return res, None, tables.state_pdf
+        ll, scores = self._score(gconsts, miv, iv, bfeats, wide)
+        if banded is not None:
             res = viterbi_align_banded(
                 tables, offsets, ll, lens, self._id2pdf_t,
                 acoustic_scale=self.acoustic_scale,
             )
         else:
-            graphs = graphs._replace(
-                in_cost=graphs.in_cost + delta[graphs.in_tid.long()]
-            )
+            if delta is not None:
+                graphs = graphs._replace(
+                    in_cost=graphs.in_cost + delta[graphs.in_tid.long()]
+                )
             res = viterbi_align_batch(
                 graphs, ll, lens, self._id2pdf_t,
                 acoustic_scale=self.acoustic_scale,
             )
+        return res, scores, None
+
+    def _estep_batch(self, gconsts, miv, iv, bfeats, lens, graphs, banded,
+                     state_pdf, delta, carry, comp):
+        """Scoring + Viterbi (``_align_batch``) + stats fold of one
+        batch.  ``state_pdf`` is the soft step's (dense FB); the hard
+        step's Viterbi selects per arc."""
+        res, scores, fold_pdf = self._align_batch(
+            gconsts, miv, iv, bfeats, lens, graphs, banded, delta
+        )
         return _carry_fold(
             gconsts, miv, iv, bfeats, res.tids, lens, res.failed,
             self._id2pdf_t, res.total_cost, carry, comp, scores=scores,
+            state_pdf=fold_pdf,
         )
 
     def _finish_pass(self, model, carry, logp, struct, kw, tcfg):
@@ -535,16 +619,9 @@ class EStepPipeline:
 
         gconsts, miv, iv, weights = model
         P, K = gconsts.shape
-        D = miv.shape[-1]
-        num_tids = self.tm.num_transition_ids
-        pk, pkd = P * K, P * K * D
-        occ = carry[:pk].reshape(P, K)
-        mean_acc = carry[pk : pk + pkd].reshape(P, K, D)
-        var_acc = carry[pk + pkd : pk + 2 * pkd].reshape(P, K, D)
-        off = pk + 2 * pkd
-        scalars = carry[off : off + 2]
-        counts = carry[off + 2 : off + 3 + num_tids]
-        tail = carry[off + 3 + num_tids :]
+        occ, mean_acc, var_acc, scalars, counts, tail = _split_carry(
+            carry, P, K, miv.shape[-1], self.tm.num_transition_ids
+        )
         new_model = _dense_mstep(
             occ, mean_acc, var_acc, gconsts, miv, iv, weights, **kw
         )
@@ -737,6 +814,227 @@ class EStepPipeline:
         if return_occ:
             return (gconsts, miv, iv, weights), rec, occ
         return (gconsts, miv, iv, weights), rec
+
+    def _run_carry_fold_loop(self, gconsts, miv, iv, packed_graphs, feats):
+        """Every batch's scoring + Viterbi + stats fold into one device
+        carry, on graphs that already carry the transition probs.
+        Returns the (carry, comp) device tensors WITHOUT fetching."""
+        P, K = gconsts.shape
+        width = _carry_width(P, K, miv.shape[-1], self.tm.num_transition_ids)
+        carry = torch.zeros(width, dtype=torch.float32, device=self.device)
+        comp = torch.zeros_like(carry)
+        n = len(feats)
+        order = sorted(range(n), key=lambda i: feats[i].shape[0])
+        for lo in range(0, n, self.batch_size):
+            idx = order[lo : lo + self.batch_size]
+            bfeats, lens, _bt = self._batch_feats(idx, feats)
+            graphs, banded, _sp = self._batch_graphs(idx, packed_graphs)
+            carry, comp = self._estep_batch(
+                gconsts, miv, iv, bfeats, lens, graphs, banded, None, None,
+                carry, comp,
+            )
+        return carry, comp
+
+    def _align_accumulate_carry(
+        self, model, packed_graphs, feats, gmm_accs, transition_accs,
+    ) -> AlignmentResult:
+        """Stats-only E-step: every batch folds into the device carry;
+        ONE fetch for the whole pass (see align_and_accumulate)."""
+        gconsts, miv, iv = model
+        P, K = gconsts.shape
+        D = miv.shape[-1]
+        n = len(feats)
+        total_frames = sum(f.shape[0] for f in feats)
+        with self.counters.phase("align", frames=total_frames):
+            carry, _comp = self._run_carry_fold_loop(
+                gconsts, miv, iv, packed_graphs, feats
+            )
+            flat = carry.cpu().numpy().astype(np.float64)
+        (occ, mean_acc, var_acc, tot_ll, tot_frames, counts, like_sum,
+         num_done, num_error, frame_count) = _unpack_carry(
+            flat, P, K, D, self.tm.num_transition_ids
+        )
+        if num_error:
+            logger.warning(
+                "Alignment failed for %d of %d utterances", num_error, n
+            )
+        if gmm_accs is not None:
+            gmm_accs.add_dense(occ, mean_acc, var_acc, tot_ll, tot_frames)
+        if transition_accs is not None:
+            transition_accs += counts
+        return AlignmentResult(
+            None, like_sum / self.acoustic_scale, num_done, num_error,
+            frame_count,
+        )
+
+    def em_pass_resident(
+        self,
+        model,
+        packed_graphs: Sequence[PackedGraph],
+        feats: Sequence[np.ndarray],
+        mle_config=None,
+    ):
+        """One full EM pass with the model on the device: the carry
+        E-step folds every batch's stats on the device, the dense M-step
+        consumes the carry there, and the host fetches only the
+        transition counts and summary scalars.
+
+        ``packed_graphs`` carry the transition probs (pack_graphs or
+        refresh_transition_costs).  Returns (new_model, tid_counts,
+        AlignmentResult with None alignments); ``new_model`` is the
+        (gconsts, means_invvars, inv_vars, weights) device tuple for the
+        next pass (sync it into a host AmDiagGmm with apply_model_to_am).
+        The transition-model update stays on the host:
+        tm.mle_update(counts), then refresh_transition_costs."""
+        from khg_tpu_torch.parallel.mesh import _dense_mstep, _mstep_kwargs
+
+        gconsts, miv, iv, weights = model
+        P, K = gconsts.shape
+        D = miv.shape[-1]
+        num_tids = self.tm.num_transition_ids
+        total_frames = sum(f.shape[0] for f in feats)
+        with self.counters.phase("align", frames=total_frames):
+            carry, _comp = self._run_carry_fold_loop(
+                gconsts, miv, iv, packed_graphs, feats
+            )
+            occ, mean_acc, var_acc, scalars, counts, tail = _split_carry(
+                carry, P, K, D, num_tids
+            )
+            new_model = _dense_mstep(
+                occ, mean_acc, var_acc, gconsts, miv, iv, weights,
+                **_mstep_kwargs(mle_config),
+            )
+            packet = torch.cat([counts, scalars, tail]).cpu().numpy()
+        packet = packet.astype(np.float64)
+        counts = packet[: num_tids + 1]
+        like_sum, num_done, num_error, frame_count = packet[num_tids + 3 :]
+        if num_error:
+            logger.warning(
+                "Alignment failed for %d of %d utterances",
+                int(round(num_error)), len(feats),
+            )
+        return (
+            new_model,
+            counts,
+            AlignmentResult(
+                None, like_sum / self.acoustic_scale,
+                int(round(num_done)), int(round(num_error)),
+                int(round(frame_count)),
+            ),
+        )
+
+    def align_and_accumulate(
+        self,
+        am: AmDiagGmm,
+        packed_graphs: Sequence[PackedGraph],
+        feats: Sequence[np.ndarray],
+        gmm_accs: Optional[AccumAmDiagGmm] = None,
+        transition_accs: Optional[np.ndarray] = None,
+        accumulate: bool = True,
+        max_in_flight: int = 4,
+        return_alignments: bool = True,
+    ) -> AlignmentResult:
+        """Viterbi-align all utterances (graphs that carry the transition
+        probs: pack_graphs or refresh_transition_costs); optionally
+        accumulate GMM and transition stats from the alignments (weight
+        1.0 per frame).
+
+        Utterances are batched in order of length.  Each batch's result
+        (tids, and one f32 vector of total costs, failure flags and,
+        when accumulating, its GMM stats reduced on the device) is
+        copied to pinned host memory without blocking; up to
+        ``max_in_flight`` batches are in flight before the oldest is
+        drained, so host work overlaps device compute.  Per utterance
+        the likelihood is -total_cost / acoustic_scale
+        (decoder-wrappers.cc:99); failed utterances are counted and
+        logged and get no alignment.  Transition counts come from the
+        host tids (f64).
+
+        ``return_alignments=False`` (stats-only passes) folds every
+        batch's GMM stats and transition counts into the device carry
+        and makes ONE fetch at the end; ``result.alignments`` is then
+        None."""
+        import collections
+
+        if len(packed_graphs) != len(feats):
+            raise ValueError("one packed graph per utterance")
+        model = self._pack_model(am)
+        if not return_alignments:
+            if not accumulate:
+                raise ValueError(
+                    "return_alignments=False only makes sense when "
+                    "accumulating: the alignments are the only other output"
+                )
+            return self._align_accumulate_carry(
+                model, packed_graphs, feats, gmm_accs, transition_accs
+            )
+        gconsts, miv, iv = model
+        P, K = gconsts.shape
+        D = miv.shape[-1]
+        num_tids = self.tm.num_transition_ids
+        n = len(feats)
+        order = sorted(range(n), key=lambda i: feats[i].shape[0])
+        alignments: List[Optional[List[int]]] = [None] * n
+        totals = dict(tot_like=0.0, num_done=0, num_error=0, frame_count=0)
+        do_gmm = accumulate and gmm_accs is not None
+
+        def dispatch(idx):
+            bfeats, lens, _bt = self._batch_feats(idx, feats)
+            graphs, banded, _sp = self._batch_graphs(idx, packed_graphs)
+            res, scores, fold_pdf = self._align_batch(
+                gconsts, miv, iv, bfeats, lens, graphs, banded
+            )
+            parts = [res.total_cost, res.failed.to(torch.float32)]
+            if do_gmm:
+                s, _fw = _hard_stats(
+                    gconsts, miv, iv, bfeats, res.tids, lens, res.failed,
+                    self._id2pdf_t, scores=scores, state_pdf=fold_pdf,
+                )
+                parts += [s.occ.reshape(-1), s.mean_acc.reshape(-1),
+                          s.var_acc.reshape(-1), s.tot_log_like[None],
+                          s.tot_frames[None]]
+            fetch = _start_fetch([res.tids, torch.cat(parts), lens])
+            return idx, fetch
+
+        def drain(job):
+            idx, fetch = job
+            tids, flat, lens = _finish_fetch(fetch)
+            B = len(idx)
+            total_cost, failed = flat[:B], flat[B : 2 * B] > 0.5
+            for j, i in enumerate(idx):
+                if failed[j]:
+                    totals["num_error"] += 1
+                    logger.warning("Alignment failed for utterance %d", i)
+                    continue
+                t = int(lens[j])
+                alignments[i] = tids[j, :t].tolist()
+                # like = -(graph_cost + acoustic_cost)/acoustic_scale, as in
+                # AlignUtteranceWrapper (decoder-wrappers.cc:99)
+                totals["tot_like"] += -float(total_cost[j]) / self.acoustic_scale
+                totals["num_done"] += 1
+                totals["frame_count"] += t
+            if do_gmm:
+                occ, mean_acc, var_acc, tot_ll, tot_frames = _unpack_stats(
+                    flat[2 * B :].astype(np.float64), P, K, D
+                )
+                gmm_accs.add_dense(occ, mean_acc, var_acc, tot_ll, tot_frames)
+            if accumulate and transition_accs is not None:
+                ok = ~failed
+                transition_accs[:] += accumulate_transition_stats(
+                    torch.from_numpy(tids[ok]), torch.from_numpy(lens[ok]),
+                    num_tids,
+                ).numpy()
+
+        total_frames = sum(f.shape[0] for f in feats)
+        with self.counters.phase("align", frames=total_frames):
+            pending = collections.deque()
+            for lo in range(0, n, self.batch_size):
+                pending.append(dispatch(order[lo : lo + self.batch_size]))
+                if len(pending) >= max_in_flight:
+                    drain(pending.popleft())
+            while pending:
+                drain(pending.popleft())
+        return AlignmentResult(alignments, **totals)
 
     def accumulate_forward_backward(
         self,

@@ -69,6 +69,11 @@ from khg_tpu_torch.decode.decoder import decode_dense
 from khg_tpu_torch.egs.audiomnist_10k import main as runner_main, score_held_out
 from khg_tpu_torch.fstlib.fst import VectorFst
 from khg_tpu_torch.gmm.likelihoods import loglikes_np
+from khg_tpu_torch.recipes.yesno import SyntheticCorpus, train_yesno
+from khg_tpu_torch.features.mfcc import compute_mfcc_batch
+from khg_tpu_torch.features.resample import resample_waveform
+from khg_tpu_torch.egs.yesno_synth import main as synth_main
+from khg_tpu_torch.egs.yesno_wav import main as wav_main
 
 calls = {{
     "train_corpus": lambda: train_corpus(None, [["ONE"]], [np.zeros((5, 3), np.float32)]),
@@ -78,6 +83,14 @@ calls = {{
     "decode_dense": lambda: decode_dense(VectorFst(), np.zeros((2, 3)), np.zeros(2)),
     "loglikes_np": lambda: loglikes_np(None, np.zeros((2, 3))),
     "audiomnist_10k": lambda: runner_main(["--exp-dir", {tmp!r}]),
+    "train_yesno": lambda: train_yesno(
+        None, SyntheticCorpus([["YES"]], [np.zeros((5, 3), np.float32)], [])),
+    "align_and_accumulate": lambda: EStepPipeline(None).align_and_accumulate(
+        None, [], []),
+    "compute_mfcc_batch": lambda: compute_mfcc_batch(np.zeros((1, 800), np.float32)),
+    "resample_waveform": lambda: resample_waveform(np.zeros(8, np.float32), 8000, 16000),
+    "yesno_synth": lambda: synth_main(["--exp-dir", {tmp!r}]),
+    "yesno_wav": lambda: wav_main(["--exp-dir", {tmp!r}]),
 }}
 for name, call in calls.items():
     try:
@@ -96,8 +109,9 @@ def test_imports_and_entry_points_without_jax_or_cuda(tmp_path):
     """In a fresh interpreter where jax and khg_tpu cannot be imported
     and CUDA is absent: every port module and chip_smoke import, and
     train_corpus / extract_features / EStepPipeline / score_held_out /
-    decode_dense / loglikes_np and the staged runner called without a
-    device raise instead of running on the CPU."""
+    decode_dense / loglikes_np / train_yesno / align_and_accumulate /
+    compute_mfcc_batch / resample_waveform and the three staged runners
+    called without a device raise instead of running on the CPU."""
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED.format(root=str(ROOT),
                                                tmp=str(tmp_path / "exp"))],

@@ -15,7 +15,8 @@ multiple of 32 or too many to score whole (K up to 2,500), the non-banded Viterb
 with 1 to 200 incoming arcs per state and up to 30,000 states, on both
 sides of its compiled kernel's limits and its backpointer chunks' edges,
 the fbank kernel at FFT sizes 256 to 2,048, on full-mantissa and
-integer-valued rows).
+integer-valued rows and on speed-perturbed waves, MFCC on the fbank
+kernel, and align_and_accumulate on the incoming-arc Viterbi kernel).
 
 These tests need an NVIDIA card and skip without one.  They import
 only the port, so they run where khg_tpu and jax are not installed;
@@ -797,3 +798,106 @@ def test_score_held_out_kernel(cuda_device, monkeypatch):
         assert g.shape == (n, am.num_pdfs) and g.device.type == "cuda"
         assert torch.isfinite(g).all()
         assert float((g - r).abs().max()) <= 1e-4
+
+
+def test_mfcc_on_fbank_kernel(cuda_device):
+    """MFCC with kernel C's log-mel against the same cepstra from C's
+    plain version on the card: within C's 1e-3 times the largest row L1
+    norm of the lifted DCT matrix (the linear map after the log-mel);
+    compute_mfcc_batch on a CUDA tensor launches C once."""
+    from khg_tpu_torch import kernels
+    from khg_tpu_torch.features.mfcc import (
+        MfccConfig,
+        _mfcc_from_logmel,
+        compute_mfcc_batch,
+        lifted_dct_matrix,
+    )
+
+    cfg = MfccConfig(fbank=FbankConfig(sample_rate=8000, num_mel_bins=23))
+    fcfg = cfg.frontend_cfg()
+    rng = np.random.default_rng(21)
+    w = np.round(rng.standard_normal((5, 7001)) * 3000).astype(np.float32)
+    waves = torch.as_tensor(w, device=cuda_device)
+    T = num_frames(fcfg, waves.shape[-1])
+    padded = _padded_wave(waves, fcfg, T)
+    fk, ek = fbank_cuda(padded, fcfg, T)
+    fp, ep = fbank_plain(padded, fcfg, T)
+    got = _mfcc_from_logmel(torch.cat([ek[..., None], fk], -1), cfg)
+    ref = _mfcc_from_logmel(torch.cat([ep[..., None], fp], -1), cfg)
+    limit = 1e-3 * float(np.abs(lifted_dct_matrix(cfg)).sum(0).max())
+    assert got.shape == (5, T, 13)
+    assert float((got - ref).abs().max()) <= limit
+    before = kernels.LAUNCHES["fbank"]
+    whole = compute_mfcc_batch(waves, cfg)
+    assert kernels.LAUNCHES["fbank"] == before + 1
+    assert torch.equal(whole, got)
+
+
+def test_fbank_kernel_on_resampled_waves(cuda_device):
+    """Kernel C on speed-perturbed (resampled, non-integer) waves against
+    its plain version at 1e-3: every block's wave span holds samples
+    with a third TF32 part, so the kernel takes the sixth (lo-frame)
+    product throughout."""
+    from khg_tpu_torch.features.fbank_kernel import fbank_plan, split_tf32
+    from khg_tpu_torch.features.resample import perturb_speed
+
+    cfg = FbankConfig(sample_rate=8000, num_mel_bins=23)
+    rng = np.random.default_rng(22)
+    rows = []
+    for f in (0.9, 1.1):
+        for _ in range(3):
+            w = np.round(rng.standard_normal(9000) * 2000).astype(np.float32)
+            rows.append(perturb_speed(w, 8000, f, device=cuda_device)[:8000])
+    waves = torch.as_tensor(np.stack(rows), device=cuda_device)
+    T = num_frames(cfg, waves.shape[-1])
+    padded = _padded_wave(waves, cfg, T)
+    lo = split_tf32(padded.cpu().numpy())[2] != 0
+    plan = fbank_plan(cfg)
+    for t0 in range(0, T, FRAMES):
+        span = lo[:, t0 * cfg.frame_shift:(t0 + plan.rows) * cfg.frame_shift]
+        assert span.any(1).all()
+    fk, ek = fbank_cuda(padded, cfg, T)
+    fp, ep = fbank_plain(padded, cfg, T)
+    torch.cuda.synchronize()
+    assert float((fk - fp).abs().max()) <= 1e-3
+    assert float((ek - ep).abs().max()) <= 1e-3
+
+
+def test_align_and_accumulate_on_viterbi_kernel(cuda_device, monkeypatch):
+    """EStepPipeline.align_and_accumulate (align_backend="xla": kernel
+    G) against the same call with G's plain version on the card: equal
+    alignments, likelihood and transition counts, GMM stats equal (the
+    costs are bit-equal, so everything downstream is the same
+    computation); one G launch per batch."""
+    from khg_tpu_torch import kernels
+    from khg_tpu_torch.align import viterbi_kernel
+    from khg_tpu_torch.recipes.pipeline import EStepPipeline
+    from khg_tpu_torch.recipes.yesno import make_synthetic_corpus, train_yesno
+    from khg_tpu_torch.stats.accum import AccumAmDiagGmm
+
+    lp, corpus = make_synthetic_corpus(num_utts=9, dim=6,
+                                       rng=np.random.default_rng(23))
+    res = train_yesno(lp, corpus, num_iters=2, total_gauss=20,
+                      max_iter_inc=1, realign_iters="1", device="cpu")
+    pipe = EStepPipeline(res.transition_model, acoustic_scale=0.1,
+                         self_loop_scale=0.1, batch_size=4, device=cuda_device)
+    packed = pipe.pack_graphs(res.graphs)
+
+    def run():
+        acc = AccumAmDiagGmm()
+        acc.init(res.am, flags=0b1111)
+        tr = res.transition_model.init_stats()
+        out = pipe.align_and_accumulate(res.am, packed, corpus.feats, acc, tr)
+        return out, acc, tr
+
+    before = kernels.LAUNCHES["viterbi"]
+    got, acc_k, tr_k = run()
+    assert kernels.LAUNCHES["viterbi"] == before + 3
+    monkeypatch.setattr(viterbi_kernel, "viterbi_cuda", viterbi_kernel.viterbi_plain)
+    ref, acc_p, tr_p = run()
+    assert got.num_error == 0 and got.alignments == ref.alignments
+    assert got.tot_like == ref.tot_like
+    np.testing.assert_array_equal(tr_k, tr_p)
+    for p in range(res.am.num_pdfs):
+        np.testing.assert_array_equal(acc_k.get_acc(p).occupancy,
+                                      acc_p.get_acc(p).occupancy)

@@ -2,8 +2,8 @@
 
 The port (khg_tpu_torch) and the reference (khg_tpu) run on identical
 inputs: numpy data from fixed seeds, and host objects (models, FSTs,
-transition models) carried from the reference's classes to the port's
-identical copies by a pickle round trip that renames the modules.
+transition models) carried between the reference's classes and the
+port's identical copies by a pickle round trip that renames the modules.
 """
 
 import io
@@ -26,3 +26,15 @@ def port_copy(obj):
     """A deep copy of a reference-package object as the port's class."""
     return _PortUnpickler(io.BytesIO(pickle.dumps(obj))).load()
 
+
+
+class _ReferenceUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module == "khg_tpu_torch" or module.startswith("khg_tpu_torch."):
+            module = "khg_tpu" + module[len("khg_tpu_torch"):]
+        return super().find_class(module, name)
+
+
+def reference_copy(obj):
+    """A deep copy of a port object as the reference package's class."""
+    return _ReferenceUnpickler(io.BytesIO(pickle.dumps(obj))).load()
