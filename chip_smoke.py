@@ -67,11 +67,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    speed-perturbed waves (non-integer samples: the sixth product) and
    MFCC + deltas on C are held to C's plain version, B's scores to its
    plain version, and one realignment batch on G to G's plain version.
+10. CTC (BASELINE config #4): the port's runner khg_tpu_torch.egs.ctc_synth
+   at tests/test_ctc_train.py's arguments (24/6 utterances, 8 passes;
+   kernel G aligns, kernel B scores the test set), whose WER must be
+   0.00%, and again from stage 2, which must reproduce it; then
+   train_ctc_gmm at full width on phase 4's 1,024 fbank utterances (the
+   letter-phones of each utterance's digit words as tokens, blank 0),
+   8 passes with mix-up toward 1,000 Gaussians at pass 4, all
+   utterances in one batch: the average log-likelihood may not fall by
+   more than 1e-3 a pass and must rise overall, no alignment may fail
+   after pass 0, and G on the last pass's batch must give its plain
+   version's costs to the bit.
+11. Data-parallel EM (parallel/mesh.py) on phase 4's corpus and model at
+   the audiomnist_10k widths: (a) world size 1 on NCCL in this process,
+   the sharded resident loop (2 passes, kernels A and G) held to
+   em_passes_resident within 1e-5, the sharded Baum-Welch loop (1 pass,
+   D and E) to fb_em_passes_resident at phase 6's 1e-4 per frame, and
+   the per-state step (A-sac, F) on phase 7's first wide batch to the
+   pipeline's; (b) two ranks on the one card, spawned with
+   torch.multiprocessing and joined before the phase ends, on gloo (NCCL
+   refuses two ranks on one GPU), each folding half of the batches:
+   packets and model within 1e-5 of (a)'s, the model bit-identical on
+   both ranks; (c) weak_scaling_curve at world size 1 (G).  Launch
+   counts are read around each sharded call alone (reference runs
+   outside), and every kernel of a path must have launched in it.
 
 Prints a ``{"kernels": [...]}`` line, the card's nvidia-smi line, and as
 its last line ``{"ok": true, "device": {...}}``.  It needs one card and
 no network; it writes only to a temporary directory and the
-repository's build/ directory, and starts no process that outlives it.
+repository's build/ directory, and starts no process that outlives it
+(phase 11's two ranks are joined, or killed, before it ends).
 """
 
 from __future__ import annotations
@@ -2129,6 +2154,471 @@ def yesno_recipe(tmp: Path, results):
     return launches
 
 
+# ----------------------------------------------------------------- phase 10
+
+CTC_PASSES = 8
+CTC_MIXUP = 1000
+CTC_MIXUP_PASS = 4
+
+
+@contextlib.contextmanager
+def ctc_records():
+    """While inside, collects the CTC trainer's per-pass log records
+    ((pass, avg loglike, frames, seconds)) and alignment failures, and
+    keeps the last Viterbi batch (graphs, loglikes, num_frames)."""
+    import logging
+
+    from khg_tpu_torch.recipes import ctc_train
+
+    seen = {"passes": [], "failed": 0, "batch": None}
+
+    class Handler(logging.Handler):
+        def emit(self, record):
+            if record.msg.startswith("CTC EM pass"):
+                seen["passes"].append(record.args)
+            elif "failed to align" in record.msg:
+                seen["failed"] += record.args[1]
+
+    real = ctc_train.viterbi_align_batch
+
+    def spy(graphs, ll, lens, *a, **k):
+        seen["batch"] = (graphs, ll, lens)
+        return real(graphs, ll, lens, *a, **k)
+
+    logger = logging.getLogger(ctc_train.__name__)
+    handler, level = Handler(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    ctc_train.viterbi_align_batch = spy
+    try:
+        yield seen
+    finally:
+        ctc_train.viterbi_align_batch = real
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def ctc_phase(tmp: Path, corpus, feats):
+    """Phase 10: (a) the port's CTC runner at tests/test_ctc_train.py's
+    arguments, then stage 2 again from its artifacts; (b) CTC training
+    at full width (BASELINE config #4) on phase 4's 1,024 fbank
+    utterances: each utterance's tokens are the letter-phones of its
+    digit words under the digit lexicon (1..V-1, blank 0), 8 passes,
+    mix-up toward 1,000 Gaussians at pass 4, all utterances in one
+    batch.  Launch counts are set to 0 just before each and read just
+    after.  Returns (a)'s and (b)'s launch counts."""
+    import numpy as np
+    import torch
+
+    from khg_tpu_torch import kernels
+    from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain
+    from khg_tpu_torch.egs import ctc_synth
+    from khg_tpu_torch.recipes.audiomnist import digits_lexicon
+    from khg_tpu_torch.recipes.ctc_train import train_ctc_gmm
+
+    args = ["--exp-dir", str(tmp / "ctc_synth"), "--num-train", "24",
+            "--num-test", "6", "--num-passes", "8", "--device", DEVICE]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = ctc_synth.main(args)
+    again = ctc_synth.main(args + ["--stage", "2"])
+    runner_s = time.perf_counter() - t0
+    runner_launches = dict(kernels.LAUNCHES)
+    log(f"phase 10 ctc_synth runner: WER {out['wer']:.2f}%, stage-2 re-entry WER "
+        f"{again['wer']:.2f}%, {runner_s:.2f} s; avg log-likes "
+        f"{[round(x, 4) for x in out['history']]}; launches G "
+        f"{runner_launches['viterbi']}, B {runner_launches['fused_loglikes']}")
+    if out["wer"] != 0.0 or again["wer"] != out["wer"]:
+        raise AssertionError(f"phase 10: runner WER {out['wer']} / re-entry {again['wer']}")
+
+    lexicon = digits_lexicon()
+    phones = [[p for w in words for p in lexicon[w][0].split()]
+              for words in corpus.word_seqs]
+    symbols = sorted({p for seq in phones for p in seq})
+    vocab = len(symbols) + 1
+    token = {p: i + 1 for i, p in enumerate(symbols)}
+    tokens = [[token[p] for p in seq] for seq in phones]
+    frames = sum(f.shape[0] for f in feats)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with ctc_records() as seen:
+        t0 = time.perf_counter()
+        am, history, hyps = train_ctc_gmm(
+            feats, tokens, vocab, num_passes=CTC_PASSES, mixup=CTC_MIXUP,
+            mixup_pass=CTC_MIXUP_PASS, seed=SEED, device=DEVICE,
+        )
+        train_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    pass_s = [round(float(r[3]), 3) for r in seen["passes"]]
+    recovered = sum(h == t for h, t in zip(hyps, tokens)) / len(tokens)
+    log(f"phase 10 full-width CTC: {len(feats)} utterances, {frames} frames, V={vocab} "
+        f"(blank + {len(symbols)} letter-phones), up to {max(map(len, tokens))} tokens; "
+        f"{CTC_PASSES} passes in {train_s:.2f} s, per pass {pass_s} s; "
+        f"{am.num_gauss} Gaussians; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"phase 10 avg log-likes: {[round(x, 5) for x in history]}; alignment failures "
+        f"after pass 0: {seen['failed']}; collapsed final alignment = tokens for "
+        f"{recovered:.2%} of utterances; launches G {launches['viterbi']}, B "
+        f"{launches['fused_loglikes']}")
+    drops = [b - a for a, b in zip(history, history[1:])]
+    if min(drops) < -1e-3 or not history[-1] > history[0]:
+        raise AssertionError(f"phase 10: CTC history not monotone: {history}")
+    if seen["failed"]:
+        raise AssertionError(f"phase 10: {seen['failed']} alignment failures")
+    if launches["viterbi"] != CTC_PASSES - 1:
+        raise AssertionError(f"phase 10: G launched {launches['viterbi']} times, "
+                             f"not once a pass after pass 0")
+    graphs, ll, lens = seen["batch"]
+    tids, cost = viterbi_cuda(graphs, ll, lens.to(torch.int32), 1.0)
+    ptids, pcost = viterbi_plain(graphs, ll, lens, 1.0)
+    cost_equal = bool(torch.equal(cost, pcost))
+    log(f"phase 10 kernel G on the last pass's batch (B={ll.shape[0]}, T={ll.shape[1]}, "
+        f"S={graphs.in_src.shape[1]}, M={graphs.in_src.shape[2]}): costs bit-equal to its "
+        f"plain version {cost_equal}; tids equal {bool(torch.equal(tids, ptids))}")
+    if not cost_equal:
+        raise AssertionError("phase 10: kernel G's costs differ from its plain version")
+    return runner_launches, launches
+
+
+# ----------------------------------------------------------------- phase 11
+
+DP_PASSES = 2
+DP_RTOL = 1e-5
+
+
+def dp_pipeline(tm, self_loop_scale=0.1, device=None):
+    """Phase 5's pipeline (phase 6's with self_loop_scale=1.0) on
+    ``device`` (None: DEVICE)."""
+    from khg_tpu_torch.recipes.pipeline import EStepPipeline
+
+    return EStepPipeline(
+        copy.deepcopy(tm), acoustic_scale=0.1, self_loop_scale=self_loop_scale,
+        batch_size=256, mix_pad_multiple=8, states_pad_multiple=256,
+        frames_pad_multiple=256, align_backend="banded", device=device or DEVICE,
+    )
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dp_loop_passes(mesh, pipe, model, batches, passes, fb=False):
+    """``passes`` fold/finish rounds of the sharded resident loop over
+    ``batches`` (this rank's share of pipe.device_batches): returns
+    (model, logp, packets, reduction seconds per pass).  The reduction
+    is timed on one extra call of the loops' reduction (one all-reduce
+    of the pass's carry and compensation, then carry - comp), outside
+    finish (which makes its own)."""
+    import numpy as np
+    import torch
+
+    from khg_tpu_torch.est.mle import MleDiagGmmOptions
+    from khg_tpu_torch.model.transition_device import build_transition_struct
+    from khg_tpu_torch.parallel import mesh as M
+
+    P, K = model[0].shape
+    struct = build_transition_struct(pipe.tm)
+    make = M.sharded_resident_fb_em_loop if fb else M.sharded_resident_em_loop
+    loop = make(mesh, P, K, model[1].shape[-1], struct.num_tids, struct,
+                acoustic_scale=pipe.acoustic_scale,
+                transition_scale=pipe.transition_scale,
+                self_loop_scale=pipe.self_loop_scale, uniform_dest_pdf=fb,
+                mle_config=MleDiagGmmOptions())
+    logp = torch.as_tensor(np.asarray(pipe.tm.log_probs, np.float32), device=mesh.device)
+    delta = loop.delta(logp)
+    packets, reduce_s = [], []
+    for _ in range(passes):
+        carry, comp = loop.make_carry()
+        for bfeats, lens, graphs, banded, state_pdf in batches:
+            if fb and banded is None and state_pdf is None:
+                raise AssertionError("phase 11: a dense FB batch is not destination-uniform")
+            tables, offsets = banded if banded is not None else (graphs, None)
+            args = (bfeats, lens) if fb else (bfeats, lens, pipe._id2pdf_t)
+            carry, comp = loop.fold(model, delta, carry, comp, tables, *args,
+                                    offsets=offsets)
+        _sync(mesh.device)
+        t0 = time.perf_counter()
+        total = M._reduce_carry(mesh, carry, comp)
+        _sync(mesh.device)
+        reduce_s.append(time.perf_counter() - t0)
+        del total
+        model, logp, delta, packet = loop.finish(model, carry, comp, logp)
+        packets.append(packet.cpu().numpy().astype(np.float64))
+    return model, logp, np.stack(packets), reduce_s
+
+
+def _dp_rank(rank, world, store, data_path, out_dir, device):
+    """One rank of phase 11(b): joins the gloo group, folds its share of
+    the batches (every world-th, from its rank) for DP_PASSES passes
+    and writes the packets and the final model."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    from khg_tpu_torch.parallel import multihost
+
+    from khg_tpu_torch import kernels
+
+    multihost.initialize(f"file://{store}", world, rank, backend="gloo")
+    with open(data_path, "rb") as f:
+        tm, am, base, feats = pickle.load(f)
+    mesh = multihost.global_data_mesh(devices=[device] * world)
+    pipe = dp_pipeline(tm, device=device)
+    batches = pipe.device_batches(base, feats)[rank::world]
+    model = pipe.pack_model_device(am)
+    kernels.reset_launch_counts()
+    model, logp, packets, reduce_s = dp_loop_passes(mesh, pipe, model, batches,
+                                                    DP_PASSES)
+    np.savez(Path(out_dir) / f"rank{rank}.npz", packets=packets,
+             launches=json.dumps(dict(kernels.LAUNCHES)),
+             logp=logp.cpu().numpy(), reduce_s=np.array(reduce_s),
+             **{f"m{i}": x.cpu().numpy() for i, x in enumerate(model)})
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def _close(a, b, rtol=DP_RTOL, atol=DP_RTOL):
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    return bool(np.allclose(a, b, rtol=rtol, atol=atol, equal_nan=True)
+                and (np.isinf(a) == np.isinf(b)).all())
+
+
+def data_parallel(tmp: Path, res, graphs, feats, tri):
+    """Phase 11: data-parallel EM on phase 4's corpus and model at the
+    audiomnist_10k widths (batches of 256).
+
+    (a) World size 1 on NCCL, in this process: the sharded resident loop
+    (2 passes, banded route) against em_passes_resident from the same
+    state (model within 1e-5, per-frame log-likelihood within 1e-5);
+    the sharded Baum-Welch loop (1 pass) against fb_em_passes_resident
+    (phase 6's 1e-4 per frame); sharded_em_step with per_state=True on
+    phase 7's first wide batch against the pipeline's step on it.
+    (b) Two ranks on the one card, spawned with torch.multiprocessing,
+    each folding half of the batches: the reduced packets and the new
+    model equal (a)'s within 1e-5, and the model is bit-identical on
+    both ranks.  They use gloo (CUDA tensors, a FileStore in the
+    temporary directory) by choice: NCCL refuses two ranks on one GPU.
+    (c) weak_scaling_curve at world size 1 (the mesh sizes this launch
+    has), through the dense route (kernel G).
+    Launch counts are set to 0 just before each sharded call (the hard
+    loop, the Baum-Welch loop, the per-state step, the scaling curve,
+    each rank's loop) and read just after; the reference runs lie
+    outside those windows.  Returns ({path: counts}, reduction times)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from khg_tpu_torch import kernels
+    from khg_tpu_torch.align.packed import pack_graph_batch
+    from khg_tpu_torch.est.mle import MleDiagGmmOptions
+    from khg_tpu_torch.model.transition_device import build_transition_struct
+    from khg_tpu_torch.model.transition_model import MleTransitionUpdateConfig
+    from khg_tpu_torch.parallel import mesh as M
+    from khg_tpu_torch.parallel.scaling import weak_scaling_curve
+    from khg_tpu_torch.recipes.pipeline import _carry_width, _split_carry, finish_pass
+
+    frames = sum(f.shape[0] for f in feats)
+    opts, tcfg = MleDiagGmmOptions(), MleTransitionUpdateConfig()
+    path_launches = {}
+
+    def counted(path, fn, *args, **kw):
+        """fn(*args, **kw), its kernel launches kept under ``path``."""
+        kernels.reset_launch_counts()
+        out = fn(*args, **kw)
+        path_launches[path] = dict(kernels.LAUNCHES)
+        return out
+
+    def launched(path, *names):
+        for k in names:
+            if path_launches[path][k] <= 0:
+                raise AssertionError(f"phase 11 {path}: kernel {k} never launched")
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'nccl_store'}",
+                            world_size=1, rank=0)
+    try:
+        mesh = M.make_data_mesh(devices=[DEVICE])
+        # (a) the hard loop against em_passes_resident
+        ref = dp_pipeline(res.transition_model)
+        base = ref.pack_graphs_base(graphs)
+        t0 = time.perf_counter()
+        m_ref, rec = ref.em_passes_resident(ref.pack_model_device(res.am), base, feats,
+                                            DP_PASSES, mle_config=opts, transition_cfg=tcfg)
+        ref_s = time.perf_counter() - t0
+        pipe = dp_pipeline(res.transition_model)
+        t0 = time.perf_counter()
+        batches = pipe.device_batches(base, feats)
+        model1, logp1, packets1, reduce1 = counted(
+            "hard_loop", dp_loop_passes, mesh, pipe, pipe.pack_model_device(res.am),
+            batches, DP_PASSES)
+        dp_s = time.perf_counter() - t0
+        ll_gap = np.abs(packets1[:, 0] / packets1[:, 1] - rec[:, 0] / rec[:, 1])
+        model_ok = all(_close(a.cpu(), b.cpu()) for a, b in zip(model1, m_ref))
+        bit = all(torch.equal(a, b) for a, b in zip(model1, m_ref))
+        logp_gap = float(np.abs(logp1.cpu().numpy()[1:] - ref.tm.log_probs[1:]).max())
+        n = packets1.shape[1]
+        tail = packets1[:, n - 4:]
+        log(f"phase 11(a) sharded_resident_em_loop, world 1 (NCCL), {len(batches)} batches "
+            f"({sum(b[3] is not None for b in batches)} banded), {DP_PASSES} passes in "
+            f"{dp_s:.2f} s (em_passes_resident {ref_s:.2f} s); per-frame ll gap "
+            f"{ll_gap.tolist()}; model within {DP_RTOL}: {model_ok} (bit-equal {bit}); "
+            f"transition log-probs max gap {logp_gap}; reduction per pass "
+            f"{[round(s * 1e3, 3) for s in reduce1]} ms")
+        if ll_gap.max() > DP_RTOL or not model_ok or logp_gap > 1e-5:
+            raise AssertionError("phase 11(a): the sharded loop differs from "
+                                 "em_passes_resident")
+        if (tail[:, [1, 2, 3]] != rec[:, [3, 4, 5]]).any() or rec[:, 4].any():
+            raise AssertionError("phase 11(a): utterance or frame counts differ, or "
+                                 "alignments failed")
+        launched("hard_loop", "banded_viterbi")
+        if any(b[3] is None for b in batches):
+            launched("hard_loop", "viterbi")
+
+        # (a) the Baum-Welch loop against fb_em_passes_resident
+        fb_ref = dp_pipeline(res.transition_model, self_loop_scale=1.0)
+        _m, fb_rec = fb_ref.fb_em_passes_resident(
+            fb_ref.pack_model_device(res.am), base, feats, 1, mle_config=opts,
+            transition_cfg=tcfg)
+        fb_pipe = dp_pipeline(res.transition_model, self_loop_scale=1.0)
+        fb_batches = fb_pipe.device_batches(base, feats, fb=True)
+        _m, _lp, fb_packets, fb_reduce = counted(
+            "fb_loop", dp_loop_passes, mesh, fb_pipe,
+            fb_pipe.pack_model_device(res.am), fb_batches, 1, fb=True)
+        fb_gap = np.abs(fb_packets[:, [0, 1, n - 4]] - fb_rec[:, [0, 1, 2]]) / frames
+        log(f"phase 11(a) sharded_resident_fb_em_loop, 1 pass, {len(fb_batches)} batches "
+            f"({sum(b[3] is not None for b in fb_batches)} banded): per-frame gap "
+            f"(tot_log_like, tot_frames, log Z) {fb_gap.tolist()}; reduction "
+            f"{[round(s * 1e3, 3) for s in fb_reduce]} ms")
+        if fb_gap.max() > 1e-4 or fb_rec[:, 4].any() or fb_packets[:, n - 2].any():
+            raise AssertionError("phase 11(a): the sharded Baum-Welch loop differs from "
+                                 "fb_em_passes_resident, or failed")
+        launched("fb_loop", "banded_fb_fwd", "banded_fb_bwd")
+
+        # (a) the per-state step on phase 7's first wide batch
+        tm_w, am_w, graphs_w, feats_w = tri
+        wpipe = tri_pipeline(tm_w, align_backend="banded")
+        wbase = tri_packed(wpipe, graphs_w)
+        wmodel = wpipe.pack_model_device(am_w)
+        idx = list(range(TRI_BATCH))
+        bfeats, lens, _bt = wpipe._batch_feats(idx, feats_w)
+        wgraphs, banded, _sp = wpipe._batch_graphs(idx, wbase)
+        tables, offsets = banded
+        delta = torch.as_tensor(wpipe.transition_cost_deltas(), device=DEVICE)
+        P_w, K_w, D_w = wmodel[1].shape
+        carry = torch.zeros(_carry_width(P_w, K_w, D_w, tm_w.num_transition_ids),
+                            device=DEVICE)
+        wres, _scores, _fp = wpipe._align_batch(*wmodel[:3], bfeats, lens, wgraphs,
+                                                banded, delta)
+        c, _k = wpipe._estep_batch(*wmodel[:3], bfeats, lens, wgraphs, banded, None,
+                                   delta, carry, torch.zeros_like(carry))
+        step = M.sharded_em_step(mesh, acoustic_scale=0.1, banded_offsets=offsets,
+                                 mle_config=opts, per_state=True)
+        sres = counted("per_state_step", step, wmodel, tables._replace(
+            plane_cost=tables.plane_cost + delta[tables.plane_tid.long()]),
+            bfeats, lens, wpipe._id2pdf_t)
+        occ, mean_acc, var_acc, scalars, counts, _tail = _split_carry(
+            c, P_w, K_w, D_w, tm_w.num_transition_ids)
+        w_model = finish_pass(
+            wmodel, c, torch.as_tensor(np.asarray(wpipe.tm.log_probs, np.float32),
+                                       device=DEVICE),
+            build_transition_struct(wpipe.tm), M._mstep_kwargs(opts), tcfg, 1.0, 0.1,
+        )[0]
+        tids_equal = bool(torch.equal(sres.tids, wres.tids))
+        stats_ok = all(_close(a.cpu(), b.cpu()) for a, b in (
+            (sres.occ, occ), (sres.mean_acc, mean_acc), (sres.var_acc, var_acc),
+            (sres.tid_counts, counts), (sres.tot_log_like, scalars[0])))
+        wmodel_ok = all(_close(a.cpu(), b.cpu()) for a, b in zip(sres[8:], w_model))
+        log(f"phase 11(a) sharded_em_step per_state on phase 7's first wide batch (B="
+            f"{bfeats.shape[0]}, S={tables.plane_cost.shape[2]}, P={wmodel[0].shape[0]}): "
+            f"tids equal to the pipeline's {tids_equal}; stats within {DP_RTOL} "
+            f"{stats_ok}; new model within {DP_RTOL} {wmodel_ok}")
+        if not (tids_equal and stats_ok and wmodel_ok) or bool(sres.total_cost.ge(1e29).any()):
+            raise AssertionError("phase 11(a): the per-state step differs from the "
+                                 "pipeline's wide batch")
+        launched("per_state_step", "banded_viterbi_sac", "stats_fold")
+
+        # (c) weak scaling at the sizes this launch has
+        order = sorted(range(len(feats)), key=lambda i: feats[i].shape[0])
+        sc_pipe = dp_pipeline(res.transition_model)
+        sc_model = sc_pipe.pack_model_device(res.am)
+
+        def problem(num_utts):
+            idx = order[:num_utts]
+            sub = [feats[i] for i in idx]
+            T = max(f.shape[0] for f in sub)
+            x = np.zeros((num_utts, T, sub[0].shape[1]), np.float32)
+            for j, f in enumerate(sub):
+                x[j, : f.shape[0]] = f
+            g = pack_graph_batch(sc_pipe.pack_graphs([graphs[i] for i in idx]),
+                                 states_pad_to=256, indeg_pad_to=2)
+            lens = np.array([f.shape[0] for f in sub], np.int32)
+            return sc_model[:3], sc_model[3], g, x, lens, sc_pipe._id2pdf_t
+
+        t0 = time.perf_counter()
+        curve = counted("weak_scaling", weak_scaling_curve, problem, [1, 2, 4],
+                        per_device_batch=min(256, len(feats)), iters=3,
+                        devices=[DEVICE], acoustic_scale=0.1)
+        log(f"phase 11(c) weak scaling, world 1 (sizes 2 and 4 skipped: one card), "
+            f"{time.perf_counter() - t0:.2f} s: {json.dumps(curve)}; {card_line()}")
+        if [r["n_devices"] for r in curve] != [1]:
+            raise AssertionError(f"phase 11(c): curve {curve}")
+        launched("weak_scaling", "viterbi")
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two ranks on the one card
+    data = tmp / "dp_data.pkl"
+    with open(data, "wb") as f:
+        pickle.dump((res.transition_model, res.am, base, feats), f)
+    out_dir = tmp / "dp_out"
+    out_dir.mkdir()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_dp_rank, args=(2, str(tmp / "gloo_store"), str(data),
+                                             str(out_dir), DEVICE),
+                             nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=max(1.0, 600 - (time.perf_counter() - t0))):
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("phase 11(b): the ranks did not finish in 600 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    two_s = time.perf_counter() - t0
+    ranks = [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(2)]
+    same = all(np.array_equal(ranks[0][k], ranks[1][k], equal_nan=True)
+               for k in ("m0", "m1", "m2", "m3", "logp", "packets"))
+    packets_ok = _close(ranks[0]["packets"], packets1, atol=0)
+    model_ok = all(_close(ranks[0][f"m{i}"], model1[i].cpu()) for i in range(4))
+    counts_gap = float(np.abs(ranks[0]["packets"][:, 2:n - 4] - packets1[:, 2:n - 4]).max())
+    model_gap = []
+    for i in range(4):
+        a, b = ranks[0][f"m{i}"], model1[i].cpu().numpy()
+        fin = np.isfinite(a) & np.isfinite(b)
+        model_gap.append(float(np.abs(a - b)[fin].max()) if fin.any() else 0.0)
+    for r in range(2):
+        path_launches[f"rank{r}_loop"] = json.loads(str(ranks[r]["launches"]))
+    log(f"phase 11(b) two ranks on one card (gloo), {DP_PASSES} passes, {two_s:.2f} s with "
+        f"start-up: ranks bit-identical {same}; packets within {DP_RTOL} of world 1 "
+        f"{packets_ok} (tid counts max gap {counts_gap}); model within {DP_RTOL} "
+        f"{model_ok} (max abs gaps {model_gap}); reduction per pass (gloo, rank 0) "
+        f"{[round(float(s) * 1e3, 3) for s in ranks[0]['reduce_s']]} ms")
+    if not (same and packets_ok and model_ok):
+        raise AssertionError("phase 11(b): two ranks differ from each other or from world 1")
+    for r in range(2):
+        launched(f"rank{r}_loop", "banded_viterbi")
+    log("phase 11 launches by path: " + json.dumps(
+        {path: {k: n for k, n in c.items() if n} for path, c in path_launches.items()}))
+    return path_launches, dict(world1_reduce_ms=[s * 1e3 for s in reduce1],
+                          gloo2_reduce_ms=(ranks[0]["reduce_s"] * 1e3).tolist())
+
+
 def main() -> int:
     try:
         import torch
@@ -2212,6 +2702,12 @@ def main() -> int:
         t0 = time.perf_counter()
         yesno_recipe(Path(tmp), results)
         log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ctc_runner, ctc_launches = ctc_phase(Path(tmp), corpus, feats)
+        log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dp_launches, dp_times = data_parallel(Path(tmp), res, graphs, feats, tri)
+        log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
     results["banded_viterbi"]["launches"] = launches["banded_viterbi"]
     results["fbank"]["launches"] = launches["fbank"]
@@ -2221,6 +2717,14 @@ def main() -> int:
     results["viterbi"]["launches"] = g_launches["viterbi"]
     for k in ("stats_fold", "banded_viterbi_sac"):
         results[k]["launches"] = w_launches[k]
+    results["viterbi"]["phase10"] = dict(runner_launches=ctc_runner["viterbi"],
+                                         full_width_launches=ctc_launches["viterbi"])
+    results["fused_loglikes"]["phase10"] = dict(runner_launches=ctc_runner["fused_loglikes"])
+    for k in ("banded_viterbi", "banded_viterbi_sac", "banded_fb_fwd", "banded_fb_bwd",
+              "stats_fold", "viterbi"):
+        results[k]["phase11"] = dict(launches={
+            path: c[k] for path, c in dp_launches.items() if c[k]})
+    log(f"phase 11 reductions (ms per pass): {json.dumps(dp_times)}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [results[k] for k in (
         "banded_viterbi", "fused_loglikes", "fbank", "banded_fb_fwd",

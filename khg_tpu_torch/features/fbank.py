@@ -2,10 +2,10 @@
 
 ``FbankConfig`` and the numpy matrix builders (window, mel banks, DFT
 matrices, frame count) are copied from khg_tpu unchanged;
-``compute_fbank_batch`` is the plain PyTorch counterpart of khg_tpu's
-XLA path: framing is an index gather, DC removal, pre-emphasis and
-windowing are elementwise, and the DFT and mel projection are two
-matrix products.  The fused CUDA frontend lives in
+``compute_fbank_batch`` (``compute_fbank`` for one wave) is the plain
+PyTorch counterpart of khg_tpu's XLA path: framing is an index gather,
+DC removal, pre-emphasis and windowing are elementwise, and the DFT and
+mel projection are two matrix products.  The fused CUDA frontend lives in
 ``features/fbank_kernel.py``.
 
 Defaults follow the Kaldi/lhotse fbank convention: 25 ms windows, 10 ms
@@ -20,6 +20,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from khg_tpu_torch.utils.platform import DeviceLike, resolve_device
+
 
 @dataclass(frozen=True)
 class FbankConfig:
@@ -184,3 +187,13 @@ def compute_fbank_batch(
     if log_energy is not None:
         feats = torch.cat([log_energy[..., None], feats], dim=-1)
     return feats
+
+
+def compute_fbank(
+    wave: np.ndarray, cfg: FbankConfig = FbankConfig(), device: DeviceLike = None
+) -> np.ndarray:
+    """(num_samples,) waveform -> (T, num_mel_bins [+1]) features as
+    numpy, computed by ``compute_fbank_batch`` on ``device`` (None:
+    CUDA).  Dither is not ported: dither the wave first."""
+    w = torch.as_tensor(np.asarray(wave, np.float32), device=resolve_device(device))
+    return compute_fbank_batch(w[None], cfg)[0].cpu().numpy()

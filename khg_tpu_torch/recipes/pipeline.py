@@ -11,7 +11,7 @@ and the device world (padded dense tensors, CUDA kernels):
   3. batch utterances by length and pad each batch's (T, S),
   4. per batch: GMM scoring -> Viterbi (banded CUDA kernel, or the
      non-banded CUDA kernel for batches that do not fit a band) ->
-     stats fold into a Kahan-compensated f32 carry; soft EM runs
+     stats fold into a Kahan-compensated f64 carry; soft EM runs
      forward-backward instead (banded CUDA kernels, or the eager dense
      FB) and folds posterior-weighted stats into the same carry.
      Wide models (more than EXTERNAL_AC_PDFS pdfs) score banded
@@ -28,7 +28,12 @@ and ``em_pass_resident`` (one carry pass + the device M-step, the
 transition update left to the host), on graphs that already carry the
 transition probs.
 
-Carry layout (one flat f32 vector):
+The per-batch steps (``score_batch``, ``align_batch``, ``fb_batch``,
+and the carry rows they fold) are module functions: the sharded steps
+and loops of parallel/mesh.py run the same ones on each rank's shard.
+
+Carry layout (one flat f64 vector, ``resident_carry``; a batch's row
+is f32):
   [occ (P*K), mean_acc (P*K*D), var_acc (P*K*D), tot_log_like,
    tot_frames, tid_counts (num_tids+1), like_sum, num_done, num_error,
    frame_count]
@@ -128,6 +133,27 @@ def _kahan_add(carry, comp, x):
     return t, (t - carry) - y
 
 
+def resident_carry(width: int, device):
+    """(carry, comp) zeros of a pass's carry, every E-step's: f64, so
+    that a pass's sum of f32 batch rows is exact (unless an entry's rows
+    span more than the 29 bits f64 has beyond f32) and so does not
+    depend on how the batches are grouped: one process folding all of
+    them, or ranks folding their shares before an all-reduce, reach the
+    same total.  The Kahan step (``_kahan_add``) runs on it unchanged;
+    every pass reads its total through ``_carry_total``."""
+    carry = torch.zeros(width, dtype=torch.float64, device=device)
+    return carry, torch.zeros_like(carry)
+
+
+def _carry_total(carry, comp):
+    """A carry's compensated total, rounded once to f32 for the M-step:
+    the carry minus its compensation (``_kahan_add`` keeps in ``comp``
+    the excess that rounding added to the running sum).  Every pass
+    finishes on it, and so do the sharded loops of parallel/mesh.py
+    (with carry and compensation each summed over the ranks first)."""
+    return (carry.double() - comp.double()).float()
+
+
 def _hard_stats(gconsts, miv, iv, bfeats, tids, lens, failed, id2pdf,
                 scores=None, state_pdf=None):
     """(GMM stats, frame weights (B, T)) of one aligned batch, failed
@@ -151,21 +177,28 @@ def _hard_stats(gconsts, miv, iv, bfeats, tids, lens, failed, id2pdf,
     return s, fw
 
 
-def _carry_fold(
-    gconsts, miv, iv, bfeats, tids, lens, failed, id2pdf, total_cost,
-    carry, comp, scores=None, state_pdf=None,
-):
-    """Fold one aligned batch's stats (``_hard_stats``) and transition
-    counts into the carry."""
+def _hard_row(gconsts, miv, iv, bfeats, tids, lens, failed, id2pdf,
+              total_cost, scores=None, state_pdf=None):
+    """One aligned batch's stats (``_hard_stats``) and transition counts
+    as a row of the carry layout."""
     s, fw = _hard_stats(gconsts, miv, iv, bfeats, tids, lens, failed, id2pdf,
                         scores=scores, state_pdf=state_pdf)
     # transition counts: frame weights added per tid (tid 0 = padding)
     counts = segment_sum(fw.reshape(-1), tids.long().reshape(-1), id2pdf.shape[0])
     counts[0] = 0.0
     okf = (~failed).to(torch.float32)
-    x = _carry_row(s, counts, torch.sum(-total_cost * okf), failed,
-                   torch.sum(lens.to(torch.float32) * okf))
-    return _kahan_add(carry, comp, x)
+    return _carry_row(s, counts, torch.sum(-total_cost * okf), failed,
+                      torch.sum(lens.to(torch.float32) * okf))
+
+
+def _carry_fold(
+    gconsts, miv, iv, bfeats, tids, lens, failed, id2pdf, total_cost,
+    carry, comp, scores=None, state_pdf=None,
+):
+    """Fold one aligned batch's row (``_hard_row``) into the carry."""
+    return _kahan_add(carry, comp, _hard_row(
+        gconsts, miv, iv, bfeats, tids, lens, failed, id2pdf, total_cost,
+        scores=scores, state_pdf=state_pdf))
 
 
 def _split_carry(carry, P: int, K: int, D: int, num_tids: int):
@@ -224,19 +257,151 @@ def _carry_row(s, counts, like_sum, failed, frame_count):
     ])
 
 
-def _soft_carry_fold(gconsts, miv, iv, bfeats, fb: FBResult, carry, comp,
-                     scores=None):
-    """Fold one forward-backward batch's soft stats into the carry (the
-    layout of _carry_fold, so the same finisher works; frame_count is 0:
-    FB has no hard assignment).  Utterances with no complete path add
-    nothing but their failure."""
+def _soft_row(gconsts, miv, iv, bfeats, fb: FBResult, scores=None):
+    """One forward-backward batch's soft stats and expected transition
+    counts as a row of the carry layout (frame_count is 0: FB has no
+    hard assignment).  Utterances with no complete path add nothing but
+    their failure."""
     ok = ~fb.failed
     gamma = torch.where(ok[:, None, None], fb.gamma, 0.0)
     s = accumulate_am_stats_soft(gconsts, miv, iv, bfeats, gamma, scores=scores)
     counts = torch.sum(torch.where(ok[:, None], fb.tid_counts, 0.0), dim=0)
-    x = _carry_row(s, counts, torch.sum(torch.where(ok, fb.log_z, 0.0)),
-                   fb.failed, torch.zeros((), device=carry.device))
-    return _kahan_add(carry, comp, x)
+    return _carry_row(s, counts, torch.sum(torch.where(ok, fb.log_z, 0.0)),
+                      fb.failed, torch.zeros((), device=bfeats.device))
+
+
+def _soft_carry_fold(gconsts, miv, iv, bfeats, fb: FBResult, carry, comp,
+                     scores=None):
+    """Fold one forward-backward batch's row (``_soft_row``) into the
+    carry, so the hard passes' finisher works on it."""
+    return _kahan_add(carry, comp, _soft_row(gconsts, miv, iv, bfeats, fb,
+                                             scores=scores))
+
+
+def score_batch(gconsts, miv, iv, bfeats, likelihood_backend: str = "xla",
+                wide: bool = False):
+    """(loglikes (B, T, P), component scores or None) of one batch.  The
+    f32 "xla" backend hands its component scores to the stats fold,
+    except on wide models, whose (B, T, P, K) scores would be too large:
+    those score a few utterances at a time and keep only the loglikes.
+    "pallas" runs the fused kernel (B on the card)."""
+    dtype = "bfloat16" if likelihood_backend.endswith("bf16") else None
+    if likelihood_backend.startswith("pallas"):
+        return loglikes_fused(gconsts, miv, iv, bfeats, compute_dtype=dtype), None
+    if wide:
+        P, K = gconsts.shape
+        n = max(1, _SCORES_ALL_MAX_BYTES // (bfeats.shape[1] * P * K * 4))
+        return torch.cat([
+            loglikes(gconsts, miv, iv, bfeats[i : i + n], compute_dtype=dtype)
+            for i in range(0, bfeats.shape[0], n)
+        ]), None
+    scores = component_scores(gconsts, miv, iv, bfeats, compute_dtype=dtype)
+    ll = torch.logsumexp(scores, dim=-1)
+    return ll, (scores if dtype is None else None)
+
+
+def align_batch(gconsts, miv, iv, bfeats, lens, graphs, banded, id2pdf,
+                acoustic_scale: float, likelihood_backend: str = "xla",
+                wide: bool = False, delta=None):
+    """Scoring + Viterbi of one batch, with the per-tid cost deltas
+    added when given (``None``: the tables already carry the transition
+    probs).  ``banded`` is (BandedTables, offsets) for a batch that takes
+    the banded kernel, else None and ``graphs`` are dense tables.
+    Returns (ViterbiResult, component scores or None, state_pdf or
+    None): a banded batch of a ``wide`` model scores each graph state in
+    f32 whatever the likelihood backend (as khg_tpu does), aligns on
+    that lattice, and hands back the graph states its stats fold
+    through."""
+    if banded is not None:
+        tables, offsets = banded
+        if delta is not None:
+            tables = tables._replace(
+                plane_cost=tables.plane_cost + delta[tables.plane_tid.long()]
+            )
+        if wide:
+            sac = loglikes_per_state(gconsts, miv, iv, tables.state_pdf, bfeats)
+            res = viterbi_align_banded(
+                tables, offsets, None, lens, id2pdf,
+                acoustic_scale=acoustic_scale, sac=sac,
+            )
+            return res, None, tables.state_pdf
+    ll, scores = score_batch(gconsts, miv, iv, bfeats, likelihood_backend, wide)
+    if banded is not None:
+        res = viterbi_align_banded(
+            tables, offsets, ll, lens, id2pdf, acoustic_scale=acoustic_scale,
+        )
+    else:
+        if delta is not None:
+            graphs = graphs._replace(
+                in_cost=graphs.in_cost + delta[graphs.in_tid.long()]
+            )
+        res = viterbi_align_batch(
+            graphs, ll, lens, id2pdf, acoustic_scale=acoustic_scale,
+        )
+    return res, scores, None
+
+
+def fb_batch(gconsts, miv, iv, bfeats, lens, graphs, banded, state_pdf,
+             num_tids: int, acoustic_scale: float,
+             likelihood_backend: str = "xla", delta=None, time_chunk=None):
+    """Scoring + forward-backward of one batch, with the current cost
+    deltas when given: (FBResult, component scores or None).  The
+    cost-delta shortcut is exact on both routes: the banded packing for
+    FB rejects parallel arcs, and the dense tables keep every arc.
+    ``state_pdf`` (B, S) takes the dense FB's per-state acoustic route
+    on destination-uniform graphs."""
+    ll, scores = score_batch(gconsts, miv, iv, bfeats, likelihood_backend)
+    if banded is not None:
+        tables, offsets = banded
+        if delta is not None:
+            tables = tables._replace(
+                plane_cost=tables.plane_cost + delta[tables.plane_tid.long()]
+            )
+        fb = forward_backward_banded(
+            tables, offsets, ll, lens, num_tids, acoustic_scale=acoustic_scale,
+        )
+    else:
+        if delta is not None:
+            graphs = graphs._replace(
+                in_cost=graphs.in_cost + delta[graphs.in_tid.long()],
+                out_cost=graphs.out_cost + delta[graphs.out_tid.long()],
+            )
+        fb = forward_backward_batch(
+            graphs, ll, lens, num_tids, acoustic_scale=acoustic_scale,
+            state_pdf=state_pdf, time_chunk=time_chunk,
+        )
+    return fb, scores
+
+
+def finish_pass(model, carry, logp, struct, kw, tcfg, transition_scale,
+                self_loop_scale):
+    """Device M-step on a pass's (reduced) carry + transition update +
+    fresh cost deltas.  Returns (new_model, logp_new, delta, row) with
+    the pass's record row [tot_log_like, tot_frames, like_sum,
+    num_done, num_error, frame_count, transition_objf_impr,
+    transition_count]."""
+    from khg_tpu_torch.model.transition_device import (
+        transition_cost_deltas_device,
+        transition_mle_update_device,
+    )
+    from khg_tpu_torch.parallel.mesh import _dense_mstep
+
+    gconsts, miv, iv, weights = model
+    P, K = gconsts.shape
+    occ, mean_acc, var_acc, scalars, counts, tail = _split_carry(
+        carry, P, K, miv.shape[-1], struct.num_tids
+    )
+    new_model = _dense_mstep(
+        occ, mean_acc, var_acc, gconsts, miv, iv, weights, **kw
+    )
+    logp_new, objf_t, count_t = transition_mle_update_device(
+        counts, logp, struct, floor=tcfg.floor, mincount=tcfg.mincount
+    )
+    delta = transition_cost_deltas_device(
+        logp_new, struct, transition_scale, self_loop_scale
+    )
+    row = torch.cat([scalars, tail, objf_t[None], count_t[None]])
+    return new_model, logp_new, delta, row
 
 
 @dataclasses.dataclass
@@ -533,65 +698,15 @@ class EStepPipeline:
         """More pdfs than are scored in full: per-state scoring."""
         return int(self.id2pdf.max()) + 1 > EXTERNAL_AC_PDFS
 
-    def _score(self, gconsts, miv, iv, bfeats, wide=False):
-        """(loglikes (B, T, P), component scores or None).  The f32
-        "xla" backend hands its component scores to the stats fold,
-        except on wide models, whose (B, T, P, K) scores would be too
-        large: those score a few utterances at a time and keep only
-        the loglikes."""
-        dtype = "bfloat16" if self.likelihood_backend.endswith("bf16") else None
-        if self.likelihood_backend.startswith("pallas"):
-            return loglikes_fused(gconsts, miv, iv, bfeats, compute_dtype=dtype), None
-        if wide:
-            P, K = gconsts.shape
-            n = max(1, _SCORES_ALL_MAX_BYTES // (bfeats.shape[1] * P * K * 4))
-            return torch.cat([
-                loglikes(gconsts, miv, iv, bfeats[i : i + n], compute_dtype=dtype)
-                for i in range(0, bfeats.shape[0], n)
-            ]), None
-        scores = component_scores(gconsts, miv, iv, bfeats, compute_dtype=dtype)
-        ll = torch.logsumexp(scores, dim=-1)
-        return ll, (scores if dtype is None else None)
-
     def _align_batch(self, gconsts, miv, iv, bfeats, lens, graphs, banded,
                      delta=None):
-        """Scoring + Viterbi of one batch, with the cost deltas added
-        when given (``None``: the graphs already carry the transition
-        probs).  Returns (ViterbiResult, component scores or None,
-        state_pdf or None): a banded batch of a wide model scores each
-        graph state in f32 whatever the likelihood backend (as khg_tpu
-        does), aligns on that lattice, and hands back the graph states
-        its stats fold through."""
-        wide = self._is_wide()
-        if banded is not None:
-            tables, offsets = banded
-            if delta is not None:
-                tables = tables._replace(
-                    plane_cost=tables.plane_cost + delta[tables.plane_tid.long()]
-                )
-            if wide:
-                sac = loglikes_per_state(gconsts, miv, iv, tables.state_pdf, bfeats)
-                res = viterbi_align_banded(
-                    tables, offsets, None, lens, self._id2pdf_t,
-                    acoustic_scale=self.acoustic_scale, sac=sac,
-                )
-                return res, None, tables.state_pdf
-        ll, scores = self._score(gconsts, miv, iv, bfeats, wide)
-        if banded is not None:
-            res = viterbi_align_banded(
-                tables, offsets, ll, lens, self._id2pdf_t,
-                acoustic_scale=self.acoustic_scale,
-            )
-        else:
-            if delta is not None:
-                graphs = graphs._replace(
-                    in_cost=graphs.in_cost + delta[graphs.in_tid.long()]
-                )
-            res = viterbi_align_batch(
-                graphs, ll, lens, self._id2pdf_t,
-                acoustic_scale=self.acoustic_scale,
-            )
-        return res, scores, None
+        """``align_batch`` with this pipeline's settings (``wide`` above
+        EXTERNAL_AC_PDFS pdfs)."""
+        return align_batch(
+            gconsts, miv, iv, bfeats, lens, graphs, banded, self._id2pdf_t,
+            self.acoustic_scale, self.likelihood_backend, self._is_wide(),
+            delta,
+        )
 
     def _estep_batch(self, gconsts, miv, iv, bfeats, lens, graphs, banded,
                      state_pdf, delta, carry, comp):
@@ -607,64 +722,14 @@ class EStepPipeline:
             state_pdf=fold_pdf,
         )
 
-    def _finish_pass(self, model, carry, logp, struct, kw, tcfg):
-        """Device M-step + transition update + fresh cost deltas + the
-        pass's record row [tot_log_like, tot_frames, like_sum, num_done,
-        num_error, frame_count, transition_objf_impr, transition_count]."""
-        from khg_tpu_torch.model.transition_device import (
-            transition_cost_deltas_device,
-            transition_mle_update_device,
-        )
-        from khg_tpu_torch.parallel.mesh import _dense_mstep
-
-        gconsts, miv, iv, weights = model
-        P, K = gconsts.shape
-        occ, mean_acc, var_acc, scalars, counts, tail = _split_carry(
-            carry, P, K, miv.shape[-1], self.tm.num_transition_ids
-        )
-        new_model = _dense_mstep(
-            occ, mean_acc, var_acc, gconsts, miv, iv, weights, **kw
-        )
-        logp_new, objf_t, count_t = transition_mle_update_device(
-            counts, logp, struct, floor=tcfg.floor, mincount=tcfg.mincount
-        )
-        delta = transition_cost_deltas_device(
-            logp_new, struct, self.transition_scale, self.self_loop_scale
-        )
-        row = torch.cat([scalars, tail, objf_t[None], count_t[None]])
-        return new_model, logp_new, delta, row
-
     def _fb_batch(self, gconsts, miv, iv, bfeats, lens, graphs, banded,
                   state_pdf, delta=None, time_chunk=None):
-        """Scoring + forward-backward of one batch, with the current
-        cost deltas when given: (FBResult, component scores or None).
-        The cost-delta shortcut is exact on both routes: the banded
-        packing for FB rejects parallel arcs, and the dense tables keep
-        every arc."""
-        ll, scores = self._score(gconsts, miv, iv, bfeats)
-        num_tids = self.tm.num_transition_ids
-        if banded is not None:
-            tables, offsets = banded
-            if delta is not None:
-                tables = tables._replace(
-                    plane_cost=tables.plane_cost + delta[tables.plane_tid.long()]
-                )
-            fb = forward_backward_banded(
-                tables, offsets, ll, lens, num_tids,
-                acoustic_scale=self.acoustic_scale,
-            )
-        else:
-            if delta is not None:
-                graphs = graphs._replace(
-                    in_cost=graphs.in_cost + delta[graphs.in_tid.long()],
-                    out_cost=graphs.out_cost + delta[graphs.out_tid.long()],
-                )
-            fb = forward_backward_batch(
-                graphs, ll, lens, num_tids,
-                acoustic_scale=self.acoustic_scale, state_pdf=state_pdf,
-                time_chunk=time_chunk,
-            )
-        return fb, scores
+        """``fb_batch`` with this pipeline's settings."""
+        return fb_batch(
+            gconsts, miv, iv, bfeats, lens, graphs, banded, state_pdf,
+            self.tm.num_transition_ids, self.acoustic_scale,
+            self.likelihood_backend, delta, time_chunk,
+        )
 
     def _soft_estep_batch(self, gconsts, miv, iv, bfeats, lens, graphs,
                           banded, state_pdf, delta, carry, comp):
@@ -675,6 +740,27 @@ class EStepPipeline:
         return _soft_carry_fold(
             gconsts, miv, iv, bfeats, fb, carry, comp, scores=scores
         )
+
+    def device_batches(self, packed_graphs: Sequence[PackedGraph],
+                       feats: Sequence[np.ndarray], fb: bool = False):
+        """The device batches of a resident pass, in its order
+        (utterances sorted by length, ``batch_size`` at a time): a list
+        of (feats (B, T, D), num_frames (B,), graphs, banded, state_pdf)
+        where ``banded`` is (BandedTables, offsets) for a batch that
+        takes the banded kernel(s), else None, and ``state_pdf`` is the
+        dense forward-backward's uniform destination pdf or None
+        (``_batch_graphs``).  The sharded loops of parallel/mesh.py
+        fold these batches, each rank its share."""
+        order = sorted(range(len(feats)), key=lambda i: feats[i].shape[0])
+        batches = []
+        for lo in range(0, len(feats), self.batch_size):
+            idx = order[lo : lo + self.batch_size]
+            bfeats, lens, _bt = self._batch_feats(idx, feats)
+            graphs, banded, state_pdf = self._batch_graphs(
+                idx, packed_graphs, fb=fb
+            )
+            batches.append((bfeats, lens, graphs, banded, state_pdf))
+        return batches
 
     def em_passes_resident(
         self,
@@ -764,17 +850,7 @@ class EStepPipeline:
         delta = transition_cost_deltas_device(
             logp, struct, self.transition_scale, self.self_loop_scale
         )
-        n = len(feats)
-        order = sorted(range(n), key=lambda i: feats[i].shape[0])
-        batches = []
-        for lo in range(0, n, self.batch_size):
-            idx = order[lo : lo + self.batch_size]
-            bfeats, lens, _bt = self._batch_feats(idx, feats)
-            graphs, banded, state_pdf = self._batch_graphs(
-                idx, base_packed_graphs, fb=fb
-            )
-            batches.append((bfeats, lens, graphs, banded, state_pdf))
-
+        batches = self.device_batches(base_packed_graphs, feats, fb=fb)
         step = self._soft_estep_batch if fb else self._estep_batch
         kw = _mstep_kwargs(mle_config)
         width = _carry_width(P, K, D, num_tids)
@@ -783,18 +859,19 @@ class EStepPipeline:
         total_frames = sum(f.shape[0] for f in feats) * passes
         with self.counters.phase("fb" if fb else "align", frames=total_frames):
             for _ in range(passes):
-                carry = torch.zeros(width, dtype=torch.float32, device=self.device)
-                comp = torch.zeros_like(carry)
+                carry, comp = resident_carry(width, self.device)
                 for bfeats, lens, graphs, banded, state_pdf in batches:
                     carry, comp = step(
                         gconsts, miv, iv, bfeats, lens, graphs, banded,
                         state_pdf, delta, carry, comp,
                     )
-                (gconsts, miv, iv, weights), logp, delta, row = self._finish_pass(
-                    (gconsts, miv, iv, weights), carry, logp, struct, kw, tcfg,
+                total = _carry_total(carry, comp)
+                (gconsts, miv, iv, weights), logp, delta, row = finish_pass(
+                    (gconsts, miv, iv, weights), total, logp, struct, kw, tcfg,
+                    self.transition_scale, self.self_loop_scale,
                 )
                 rows.append(row)
-                occ_carry = carry if return_occ else None
+                occ_carry = total if return_occ else None
             rec = torch.stack(rows).cpu().numpy().astype(np.float64)
             logp_host = logp.cpu().numpy().astype(np.float32)
             occ = None
@@ -818,11 +895,11 @@ class EStepPipeline:
     def _run_carry_fold_loop(self, gconsts, miv, iv, packed_graphs, feats):
         """Every batch's scoring + Viterbi + stats fold into one device
         carry, on graphs that already carry the transition probs.
-        Returns the (carry, comp) device tensors WITHOUT fetching."""
+        Returns the pass's total (``_carry_total``) on the device,
+        WITHOUT fetching."""
         P, K = gconsts.shape
         width = _carry_width(P, K, miv.shape[-1], self.tm.num_transition_ids)
-        carry = torch.zeros(width, dtype=torch.float32, device=self.device)
-        comp = torch.zeros_like(carry)
+        carry, comp = resident_carry(width, self.device)
         n = len(feats)
         order = sorted(range(n), key=lambda i: feats[i].shape[0])
         for lo in range(0, n, self.batch_size):
@@ -833,7 +910,7 @@ class EStepPipeline:
                 gconsts, miv, iv, bfeats, lens, graphs, banded, None, None,
                 carry, comp,
             )
-        return carry, comp
+        return _carry_total(carry, comp)
 
     def _align_accumulate_carry(
         self, model, packed_graphs, feats, gmm_accs, transition_accs,
@@ -846,10 +923,10 @@ class EStepPipeline:
         n = len(feats)
         total_frames = sum(f.shape[0] for f in feats)
         with self.counters.phase("align", frames=total_frames):
-            carry, _comp = self._run_carry_fold_loop(
+            total = self._run_carry_fold_loop(
                 gconsts, miv, iv, packed_graphs, feats
             )
-            flat = carry.cpu().numpy().astype(np.float64)
+            flat = total.cpu().numpy().astype(np.float64)
         (occ, mean_acc, var_acc, tot_ll, tot_frames, counts, like_sum,
          num_done, num_error, frame_count) = _unpack_carry(
             flat, P, K, D, self.tm.num_transition_ids
@@ -894,11 +971,11 @@ class EStepPipeline:
         num_tids = self.tm.num_transition_ids
         total_frames = sum(f.shape[0] for f in feats)
         with self.counters.phase("align", frames=total_frames):
-            carry, _comp = self._run_carry_fold_loop(
+            total = self._run_carry_fold_loop(
                 gconsts, miv, iv, packed_graphs, feats
             )
             occ, mean_acc, var_acc, scalars, counts, tail = _split_carry(
-                carry, P, K, D, num_tids
+                total, P, K, D, num_tids
             )
             new_model = _dense_mstep(
                 occ, mean_acc, var_acc, gconsts, miv, iv, weights,
@@ -1061,8 +1138,7 @@ class EStepPipeline:
         n = len(feats)
         order = sorted(range(n), key=lambda i: feats[i].shape[0])
         width = _carry_width(P, K, D, num_tids)
-        carry = torch.zeros(width, dtype=torch.float32, device=self.device)
-        comp = torch.zeros_like(carry)
+        carry, comp = resident_carry(width, self.device)
         for lo in range(0, n, self.batch_size):
             idx = order[lo : lo + self.batch_size]
             bfeats, lens, bt = self._batch_feats(idx, feats)
@@ -1074,7 +1150,7 @@ class EStepPipeline:
             carry, comp = _soft_carry_fold(
                 gconsts, miv, iv, bfeats, fb, carry, comp, scores=scores
             )
-        flat = carry.cpu().numpy().astype(np.float64)
+        flat = _carry_total(carry, comp).cpu().numpy().astype(np.float64)
         (occ, mean_acc, var_acc, tot_ll, tot_frames, counts, log_z_sum,
          _num_done, num_error, _) = _unpack_carry(flat, P, K, D, num_tids)
         if num_error:
@@ -1105,8 +1181,7 @@ class EStepPipeline:
         n = len(feats)
         order = sorted(range(n), key=lambda i: feats[i].shape[0])
         width = _carry_width(P, K, D, num_tids)
-        carry = torch.zeros(width, dtype=torch.float32, device=self.device)
-        comp = torch.zeros_like(carry)
+        carry, comp = resident_carry(width, self.device)
         for lo in range(0, n, self.batch_size):
             idx = order[lo : lo + self.batch_size]
             bfeats, lens, bt = self._batch_feats(idx, feats)
@@ -1128,7 +1203,7 @@ class EStepPipeline:
                 torch.zeros(B, dtype=torch.float32, device=self.device),
                 carry, comp,
             )
-        flat = carry.cpu().numpy().astype(np.float64)
+        flat = _carry_total(carry, comp).cpu().numpy().astype(np.float64)
         occ, mean_acc, var_acc, tot_ll, tot_frames = _unpack_carry(
             flat, P, K, D, num_tids
         )[:5]

@@ -226,14 +226,18 @@ def segment_sum(src: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
     in increasing i on every run and device (checkpoint resume must be
     bit-exact; CUDA's ``index_add_`` adds with atomics in whatever order
     they land).  A stable sort of the rows by index, then one serial sum
-    per (segment, column): no atomics, no host sync."""
+    per (segment, column): no atomics, no host sync.  Rows whose index
+    lies outside [0, n) are dropped, as jax.ops.segment_sum drops them
+    (CTC's id2pdf maps the padding tid 0 to pdf -1): they sort into a
+    last segment that is cut off."""
+    index = torch.where((index >= 0) & (index < n), index, n)
     order = torch.argsort(index, stable=True)
     bounds = torch.searchsorted(
-        index[order], torch.arange(n + 1, device=index.device, dtype=index.dtype)
+        index[order], torch.arange(n + 2, device=index.device, dtype=index.dtype)
     )
     return torch.segment_reduce(
         src[order], "sum", lengths=bounds.diff(), axis=0, unsafe=True
-    )
+    )[:n]
 
 
 class DenseStats(NamedTuple):

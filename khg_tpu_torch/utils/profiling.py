@@ -1,5 +1,5 @@
 """Lightweight observability: phase timers and throughput counters
-(the host half of khg_tpu/utils/profiling.py)."""
+(khg_tpu/utils/profiling.py), and a torch.profiler trace context."""
 
 from __future__ import annotations
 
@@ -43,3 +43,23 @@ class Counters:
                 f"calls{rate_s}"
             )
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """torch.profiler trace context (no-op when log_dir is None): host
+    activity, and the card's where CUDA is present, written on exit to
+    ``log_dir`` as a Chrome trace (``<host>_<pid>.<time>.pt.trace.json``,
+    as TensorBoard's profiler plugin reads it)."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        yield

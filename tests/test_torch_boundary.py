@@ -1,6 +1,7 @@
-"""The port stands alone: no module of khg_tpu_torch, and not
-chip_smoke.py, imports jax or khg_tpu, and its entry points never fall
-back to the CPU without being asked."""
+"""The port stands alone: no module of khg_tpu_torch, not chip_smoke.py,
+and not the worker that the multi-process tests spawn
+(tests/torch_multihost_worker.py) imports jax or khg_tpu, and its entry
+points never fall back to the CPU without being asked."""
 
 import ast
 import subprocess
@@ -15,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "khg_tpu")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_multihost_worker.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -60,6 +62,8 @@ import khg_tpu_torch
 for m in pkgutil.walk_packages(khg_tpu_torch.__path__, "khg_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+sys.path.insert(0, {root!r} + "/tests")
+import torch_multihost_worker
 
 import numpy as np
 from khg_tpu_torch.recipes.corpus_train import train_corpus
@@ -74,6 +78,10 @@ from khg_tpu_torch.features.mfcc import compute_mfcc_batch
 from khg_tpu_torch.features.resample import resample_waveform
 from khg_tpu_torch.egs.yesno_synth import main as synth_main
 from khg_tpu_torch.egs.yesno_wav import main as wav_main
+from khg_tpu_torch.egs.ctc_synth import main as ctc_main
+from khg_tpu_torch.recipes.ctc_train import train_ctc_gmm
+from khg_tpu_torch.parallel.mesh import make_data_mesh
+from khg_tpu_torch.features import compute_fbank
 
 calls = {{
     "train_corpus": lambda: train_corpus(None, [["ONE"]], [np.zeros((5, 3), np.float32)]),
@@ -91,6 +99,10 @@ calls = {{
     "resample_waveform": lambda: resample_waveform(np.zeros(8, np.float32), 8000, 16000),
     "yesno_synth": lambda: synth_main(["--exp-dir", {tmp!r}]),
     "yesno_wav": lambda: wav_main(["--exp-dir", {tmp!r}]),
+    "ctc_synth": lambda: ctc_main(["--exp-dir", {tmp!r}]),
+    "train_ctc_gmm": lambda: train_ctc_gmm([np.zeros((5, 3), np.float32)], [[1]], 2),
+    "make_data_mesh": lambda: make_data_mesh(),
+    "compute_fbank": lambda: compute_fbank(np.zeros(800, np.float32)),
 }}
 for name, call in calls.items():
     try:
@@ -110,8 +122,10 @@ def test_imports_and_entry_points_without_jax_or_cuda(tmp_path):
     and CUDA is absent: every port module and chip_smoke import, and
     train_corpus / extract_features / EStepPipeline / score_held_out /
     decode_dense / loglikes_np / train_yesno / align_and_accumulate /
-    compute_mfcc_batch / resample_waveform and the three staged runners
-    called without a device raise instead of running on the CPU."""
+    compute_mfcc_batch / resample_waveform / train_ctc_gmm /
+    make_data_mesh / compute_fbank and the four staged runners called
+    without a device raise instead of running on the CPU; the
+    multi-process tests' worker imports too."""
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED.format(root=str(ROOT),
                                                tmp=str(tmp_path / "exp"))],

@@ -38,3 +38,37 @@ class _ReferenceUnpickler(pickle.Unpickler):
 def reference_copy(obj):
     """A deep copy of a port object as the reference package's class."""
     return _ReferenceUnpickler(io.BytesIO(pickle.dumps(obj))).load()
+
+
+def build_yesno_like():
+    """tests/test_graph_compiler.build_yesno_like on the port's classes:
+    (lexiconp, topology, tree, transition model, graph compiler)."""
+    from khg_tpu_torch.graph.compiler import (
+        TrainingGraphCompiler,
+        TrainingGraphCompilerOptions,
+    )
+    from khg_tpu_torch.lang.lexicon import Lexicon, Lexiconp
+    from khg_tpu_torch.lang.lfst import make_lexicon_fst_with_silence
+    from khg_tpu_torch.lang.topo import generate_hmm_topo
+    from khg_tpu_torch.model.context_dep import monophone_context_dependency
+    from khg_tpu_torch.model.transition_model import TransitionModel
+
+    lexicon = Lexicon(word2phones={"<SIL>": ["SIL"], "YES": ["Y"], "NO": ["N"]})
+    lexiconp = Lexiconp.from_lexicon(lexicon)
+    lp = lexiconp.add_lex_disambig()
+    topo = generate_hmm_topo(
+        non_sil_phones=lp.get_non_sil_phone_ids(), sil_phone=lp.get_sil_phone_id(),
+    )
+    tree = monophone_context_dependency(
+        topo.phones, topo.get_phone_to_num_pdf_classes()
+    )
+    tm = TransitionModel(ctx_dep=tree, hmm_topo=topo)
+    lex_fst = make_lexicon_fst_with_silence(
+        lexiconp=lexiconp, sil_prob=0.5, sil_phone="SIL"
+    )
+    gc = TrainingGraphCompiler(
+        trans_model=tm, ctx_dep=tree, lex_fst=lex_fst,
+        disambig_syms=[lp.phone2id[f"#{i}"] for i in range(lp.max_disambig + 1)],
+        opts=TrainingGraphCompilerOptions(),
+    )
+    return lp, topo, tree, tm, gc
