@@ -91,6 +91,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    both ranks; (c) weak_scaling_curve at world size 1 (G).  Launch
    counts are read around each sharded call alone (reference runs
    outside), and every kernel of a path must have launched in it.
+12. Parity leftovers (parity_leftovers) on phase 4's corpus and model:
+   dither with a CUDA generator (fbank, and MFCC on kernel C)
+   reproducible, bit-equal to the undithered path on the same noise,
+   its moments within 5 sigma; careful alignment of the first 64
+   utterances through kernel G (launches counted around that call
+   alone), equal to the plain graphs' alignments, and G bit-equal to
+   its plain version on the careful batch; bf16 per-state scores
+   within their rounding bound of f32; the local stats fold on
+   precomputed state scores bit-equal to the fold that scores itself.
+   Its wall time is printed beside the card's nvidia-smi line.
 
 Prints a ``{"kernels": [...]}`` line, the card's nvidia-smi line, and as
 its last line ``{"ok": true, "device": {...}}``.  It needs one card and
@@ -2619,6 +2629,208 @@ def data_parallel(tmp: Path, res, graphs, feats, tri):
                           gloo2_reduce_ms=(ranks[0]["reduce_s"] * 1e3).tolist())
 
 
+# ----------------------------------------------------------------- phase 12
+
+PARITY_UTTS = 64
+DITHER = 1.0
+# bf16 per-state scores against f32: each score within BF16_REL (+ the
+# f32 sums' 1e-5) of the magnitude of the terms it adds, since both
+# operands of each product are rounded to bf16 (8 significant bits:
+# (1 + 2^-8)^2 - 1), as tests/test_torch_per_state.py holds them
+BF16_REL = 2.0 ** -7 + 2.0 ** -16
+
+
+def parity_leftovers(res, graphs, feats, waves, cfg, results):
+    """Phase 12: the options that close the port's parity with khg_tpu,
+    on phase 4's corpus and model.  (a) Dither with a CUDA generator on
+    the first PARITY_UTTS WAVs: fbank (plain path) and MFCC (kernel C)
+    reproducible from a seed, bit-equal to the undithered path on
+    dither_waves' noise from the same seed, another seed different, no
+    generator adding nothing, and the noise's moments within 5 sigma.
+    (b) Careful alignment of the first PARITY_UTTS utterances:
+    pack_graphs(careful=True) and align_and_accumulate with
+    align_backend="xla" (kernel G; launches counted around this call
+    alone), with no failure and the plain graphs' alignments and
+    likelihood; one careful batch on G against G's plain version (costs
+    bit-equal, tids equal).  (c) bf16 per-state scores against f32 on
+    that batch's plain graphs, within BF16_REL of each score's terms.
+    (d) accumulate_am_stats_local on precomputed f32 state_scores
+    bit-equal to the fold that scores itself.  Returns (the launches of
+    (a), the launches of (b), the phase's seconds)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from khg_tpu_torch import kernels
+    from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain, viterbi_plan
+    from khg_tpu_torch.features.fbank import compute_fbank_batch, dither_waves
+    from khg_tpu_torch.features.mfcc import MfccConfig, compute_mfcc_batch
+    from khg_tpu_torch.gmm.likelihoods import (
+        component_scores_per_state,
+        expand_feats,
+        stack_model,
+    )
+    from khg_tpu_torch.recipes.pipeline import EStepPipeline, score_batch
+    from khg_tpu_torch.stats.accum import accumulate_am_stats_local
+
+    t_phase = time.perf_counter()
+    n = PARITY_UTTS
+
+    def gen(seed):
+        return torch.Generator(device=DEVICE).manual_seed(seed)
+
+    # (a) dither: an equal-length batch of the first n waves, cut to the
+    # shortest
+    cut = min(len(w) for w in waves[:n])
+    x = torch.as_tensor(np.stack([w[:cut] for w in waves[:n]]).astype(np.float32),
+                        device=DEVICE)
+    dcfg = dataclasses.replace(cfg, dither=DITHER)
+    mcfg0 = MfccConfig(fbank=cfg)
+    mcfg = MfccConfig(fbank=dcfg)
+    kernels.reset_launch_counts()
+    fb1 = compute_fbank_batch(x, dcfg, gen(1))
+    mf1 = compute_mfcc_batch(x, mcfg, gen(1))
+    dither_launches = dict(kernels.LAUNCHES)
+    fb1b = compute_fbank_batch(x, dcfg, gen(1))
+    mf1b = compute_mfcc_batch(x, mcfg, gen(1))
+    fb2 = compute_fbank_batch(x, dcfg, gen(2))
+    noisy = dither_waves(x, DITHER, gen(1))
+    fb_explicit = compute_fbank_batch(noisy, cfg)
+    mf_explicit = compute_mfcc_batch(noisy, mcfg0)
+    none_fb = compute_fbank_batch(x, dcfg)
+    none_mf = compute_mfcc_batch(x, mcfg)
+    plain_fb = compute_fbank_batch(x, cfg)
+    plain_mf = compute_mfcc_batch(x, mcfg0)
+    noise = (noisy - x).double()
+    samples = noise.numel()
+    mean, std = float(noise.mean()), float(noise.std())
+    mean_lim, std_lim = 5 * DITHER / math.sqrt(samples), 5 * DITHER / math.sqrt(2 * samples)
+    dither_checks = {
+        "same seed, same fbank": torch.equal(fb1, fb1b),
+        "same seed, same MFCC": torch.equal(mf1, mf1b),
+        "another seed, other fbank": not torch.equal(fb1, fb2),
+        "fbank bit-equal to explicit noise": torch.equal(fb1, fb_explicit),
+        "MFCC bit-equal to explicit noise": torch.equal(mf1, mf_explicit),
+        "no generator adds nothing": (torch.equal(none_fb, plain_fb)
+                                      and torch.equal(none_mf, plain_mf)),
+        "noise moved the features": not torch.equal(fb1, plain_fb),
+        "mean within 5 sigma": abs(mean) <= mean_lim,
+        "std within 5 sigma": abs(std - DITHER) <= std_lim,
+        "features finite": bool(torch.isfinite(fb1).all() and torch.isfinite(mf1).all()),
+    }
+    log(f"phase 12(a) dither {DITHER} with a CUDA generator, {n} waves x {cut} samples: "
+        f"noise mean {mean:.3e} (limit {mean_lim:.3e}), std {std:.6f} (1 +- "
+        f"{std_lim:.3e}) over {samples} samples; fbank {tuple(fb1.shape)}, MFCC "
+        f"{tuple(mf1.shape)}; {json.dumps(dither_checks)}; launches "
+        f"{ {k: v for k, v in dither_launches.items() if v} }")
+    if not all(dither_checks.values()):
+        raise AssertionError(f"phase 12(a): dither checks failed: {dither_checks}")
+    if dither_launches["fbank"] <= 0:
+        raise AssertionError("phase 12(a): kernel C did not launch for the dithered MFCC")
+
+    # (b) careful alignment through kernel G
+    sub_graphs, sub_feats = graphs[:n], feats[:n]
+    pipe = EStepPipeline(copy.deepcopy(res.transition_model), acoustic_scale=0.1,
+                         self_loop_scale=0.1, batch_size=n, align_backend="xla",
+                         device=DEVICE)
+    careful = pipe.pack_graphs(sub_graphs, careful=True)
+    plain = pipe.pack_graphs(sub_graphs)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ali_c = pipe.align_and_accumulate(res.am, careful, sub_feats, accumulate=False)
+    torch.cuda.synchronize()
+    careful_s = time.perf_counter() - t0
+    careful_launches = dict(kernels.LAUNCHES)
+    ali_p = pipe.align_and_accumulate(res.am, plain, sub_feats, accumulate=False)
+    same_alignments = ali_c.alignments == ali_p.alignments
+    log(f"phase 12(b) careful alignment of {n} utterances (align_backend='xla'): "
+        f"{careful_s:.3f} s, failures {ali_c.num_error} (plain graphs "
+        f"{ali_p.num_error}), tot_like {ali_c.tot_like!r} (plain graphs "
+        f"{ali_p.tot_like!r}), alignments equal {same_alignments}; launches "
+        f"{ {k: v for k, v in careful_launches.items() if v} }")
+    if ali_c.num_error or ali_p.num_error or not same_alignments \
+            or ali_c.tot_like != ali_p.tot_like:
+        raise AssertionError("phase 12(b): careful alignment failed or differs from "
+                             "the plain graphs'")
+    if careful_launches["viterbi"] <= 0:
+        raise AssertionError("phase 12(b): kernel G never launched for careful graphs")
+
+    idx = sorted(range(n), key=lambda i: sub_feats[i].shape[0])
+    gconsts, miv, iv = pipe._pack_model(res.am)
+    bfeats, lens, _bt = pipe._batch_feats(idx, sub_feats)
+    g, _banded, _sp = pipe._batch_graphs(idx, careful)
+    ll, _scores = score_batch(gconsts, miv, iv, bfeats)
+    nf = lens.to(torch.int32).contiguous()
+    tk, ck = viterbi_cuda(g, ll, nf, 0.1)
+    tp, cp = viterbi_plain(g, ll, nf, 0.1)
+    torch.cuda.synchronize()
+    B, S, M = g.in_src.shape
+    plan = viterbi_plan(S, M)
+    g_equal = torch.equal(ck, cp) and torch.equal(tk, tp)
+    ms = time_ms(lambda: viterbi_cuda(g, ll, nf, 0.1), reps=5)
+    plain_ms = time_ms(lambda: viterbi_plain(g, ll, nf, 0.1), reps=1)
+    log(f"phase 12(b) kernel G on the careful batch (B={B}, T={ll.shape[1]}, S={S}, "
+        f"M={M}, {plan[0]} route): costs bit-equal and tids equal to its plain "
+        f"version: {g_equal}; {ms:.3f} ms (plain {plain_ms:.1f} ms)")
+    if not g_equal:
+        raise AssertionError("phase 12(b): kernel G differs from its plain version "
+                             "on careful graphs")
+
+    # (c) bf16 per-state scores against f32, on the plain graphs' states
+    _g, _banded, sp = pipe._batch_graphs(idx, plain)
+    if sp is None:
+        raise AssertionError("phase 12(c): the plain graphs are not destination-uniform")
+    f32 = component_scores_per_state(gconsts, miv, iv, sp, bfeats)
+    bf16 = component_scores_per_state(gconsts, miv, iv, sp, bfeats,
+                                      compute_dtype="bfloat16")
+    P, K, D = miv.shape
+    A, _gc = stack_model(gconsts, miv, iv)
+    terms = torch.einsum("btd,bskd->btsk", expand_feats(bfeats).abs(),
+                         A.reshape(P, K, 2 * D)[sp.long()].abs())
+    fin = torch.isfinite(f32)
+    gap = (bf16 - f32)[fin].abs()
+    ratio = float((gap / ((BF16_REL + 1e-5) * terms[fin] + 1e-6)).max())
+    bf16_ok = torch.equal(fin, torch.isfinite(bf16)) and ratio <= 1.0
+    log(f"phase 12(c) bf16 per-state scores (B={B}, T={bfeats.shape[1]}, S="
+        f"{sp.shape[1]}, K={K}, D={D}) against f32: max |diff| {float(gap.max()):.3e}, "
+        f"at most {ratio:.3f} of the limit ({BF16_REL:.6f} + 1e-5 of each score's "
+        f"terms); finite entries equal {bool(torch.equal(fin, torch.isfinite(bf16)))}")
+    if not bf16_ok:
+        raise AssertionError("phase 12(c): bf16 per-state scores off their bound")
+    del f32, bf16, terms, gap
+
+    # (d) the local fold on precomputed state scores
+    id2pdf = pipe.tm.id2pdf_array()
+    pdf_np = np.zeros(tuple(bfeats.shape[:2]), np.int64)
+    w_np = np.zeros(tuple(bfeats.shape[:2]), np.float32)
+    for j, i in enumerate(idx):
+        tids = np.asarray(ali_p.alignments[i])
+        pdf_np[j, : len(tids)] = id2pdf[tids]
+        w_np[j, : len(tids)] = 1.0
+    pdf_ids = torch.as_tensor(pdf_np, device=DEVICE)
+    weights = torch.as_tensor(w_np, device=DEVICE)
+    own = accumulate_am_stats_local(gconsts, miv, iv, bfeats, pdf_ids, weights, sp)
+    given = accumulate_am_stats_local(
+        gconsts, miv, iv, bfeats, pdf_ids, weights, sp,
+        state_scores=component_scores_per_state(gconsts, miv, iv, sp, bfeats))
+    torch.cuda.synchronize()
+    scores_equal = all(torch.equal(a, b) for a, b in zip(own, given))
+    log(f"phase 12(d) accumulate_am_stats_local with state_scores bit-equal to "
+        f"without: {scores_equal} (tot_frames {float(own.tot_frames)}, "
+        f"tot_log_like {float(own.tot_log_like)!r})")
+    if not scores_equal or float(own.tot_frames) != float(w_np.sum()):
+        raise AssertionError("phase 12(d): the fold on given state scores differs")
+
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 12: {phase_s:.1f} s; {card_line()}")
+    results["viterbi"]["phase12"] = dict(
+        launches=careful_launches["viterbi"], B=B, S=S, M=M, plan=plan[0],
+        bit_equal=True, ms=ms, plain_ms=plain_ms)
+    results["fbank"]["phase12"] = dict(launches=dither_launches["fbank"])
+    return dither_launches, careful_launches, phase_s
+
+
 def main() -> int:
     try:
         import torch
@@ -2708,6 +2920,7 @@ def main() -> int:
         t0 = time.perf_counter()
         dp_launches, dp_times = data_parallel(Path(tmp), res, graphs, feats, tri)
         log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+        parity_leftovers(res, graphs, feats, waves, cfg, results)
 
     results["banded_viterbi"]["launches"] = launches["banded_viterbi"]
     results["fbank"]["launches"] = launches["fbank"]

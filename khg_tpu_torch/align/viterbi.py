@@ -19,7 +19,7 @@ reported via a total cost at or above FAIL_THRESHOLD.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -53,12 +53,19 @@ def viterbi_align_batch(
     num_frames: torch.Tensor,    # (B,) int
     id2pdf: torch.Tensor,        # (num_tids+1,) int
     acoustic_scale: float = 1.0,
+    state_pdf: Optional[torch.Tensor] = None,  # (B, S) int or None
 ) -> ViterbiResult:
     """Exact batched Viterbi alignment of B utterances: the kernel on
-    CUDA (any S and M), the eager DP on the CPU.  Both select each
-    arc's acoustic score through its pdf; khg_tpu's per-state gather
-    (``state_pdf``) gives the same result on every feasible path, since
-    only padding arcs score differently and BIG swamps them."""
+    CUDA (any S and M), the eager DP on the CPU.
+
+    ``state_pdf`` (align.packed.uniform_dest_pdf) is accepted for
+    khg_tpu's signature and not read.  There it switches to a per-state
+    acoustic lattice, which scores each state by its one pdf instead of
+    each arc by its own.  The two differ only on padding arcs, whose
+    pdf is a placeholder and whose cost BIG swamps any score, so every
+    feasible path, its cost and the failure flags are the same.  The
+    kernel and the eager DP both keep the per-arc select, which keeps
+    them bit-equal to each other."""
     # imported here: viterbi_kernel imports banded_kernel, which imports
     # this module
     from khg_tpu_torch.align.viterbi_kernel import viterbi_cuda, viterbi_plain

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -145,15 +145,37 @@ def _log_energy(frames: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
     return loge
 
 
+def dither_waves(
+    waves: torch.Tensor, dither: float,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """``waves`` (cast to f32) plus ``dither`` times standard normal
+    noise drawn from ``generator``; unchanged when ``dither`` is 0 or no
+    generator is given (khg_tpu adds nothing without a key).
+
+    The generator must live on the waves' device.  CPU and CUDA Philox
+    streams differ, so a seed reproduces its noise on one device type
+    only; JAX's bits are not reproduced at all."""
+    waves = waves.to(torch.float32)
+    if dither == 0.0 or generator is None:
+        return waves
+    return waves + dither * torch.randn(
+        waves.shape, generator=generator, device=waves.device,
+        dtype=torch.float32,
+    )
+
+
 def compute_fbank_batch(
-    waves: torch.Tensor, cfg: FbankConfig = FbankConfig()
+    waves: torch.Tensor, cfg: FbankConfig = FbankConfig(),
+    dither_generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """(B, num_samples) equal-length batch -> (B, T, num_mel_bins [+1]).
 
-    Dither is not ported: dither the waves first."""
-    if cfg.dither != 0.0:
-        raise ValueError("compute_fbank_batch: dither the waves first")
-    waves = waves.to(torch.float32)
+    With ``cfg.dither`` and a ``dither_generator`` the noise of
+    ``dither_waves`` is added to the whole wave before framing, so a
+    mirrored edge sample carries its source's noise (as khg_tpu; not
+    Kaldi's per-frame noise)."""
+    waves = dither_waves(waves, cfg.dither, dither_generator)
     T = num_frames(cfg, waves.shape[-1])
     dev = waves.device
     idx = torch.as_tensor(
@@ -190,10 +212,12 @@ def compute_fbank_batch(
 
 
 def compute_fbank(
-    wave: np.ndarray, cfg: FbankConfig = FbankConfig(), device: DeviceLike = None
+    wave: np.ndarray, cfg: FbankConfig = FbankConfig(),
+    dither_generator: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
 ) -> np.ndarray:
     """(num_samples,) waveform -> (T, num_mel_bins [+1]) features as
     numpy, computed by ``compute_fbank_batch`` on ``device`` (None:
-    CUDA).  Dither is not ported: dither the wave first."""
+    CUDA), dithered as it dithers."""
     w = torch.as_tensor(np.asarray(wave, np.float32), device=resolve_device(device))
-    return compute_fbank_batch(w[None], cfg)[0].cpu().numpy()
+    return compute_fbank_batch(w[None], cfg, dither_generator)[0].cpu().numpy()

@@ -21,11 +21,12 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass, field, replace
+from typing import Optional
 
 import numpy as np
 import torch
 
-from khg_tpu_torch.features.fbank import FbankConfig
+from khg_tpu_torch.features.fbank import FbankConfig, dither_waves
 from khg_tpu_torch.features.fbank_kernel import fbank_fused
 from khg_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -105,22 +106,33 @@ def _mfcc_from_logmel(logmel: torch.Tensor, cfg: MfccConfig) -> torch.Tensor:
 
 
 def compute_mfcc_batch(
-    waves, cfg: MfccConfig = MfccConfig(), device: DeviceLike = None,
+    waves, cfg: MfccConfig = MfccConfig(),
+    dither_generator: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
 ) -> torch.Tensor:
     """(B, num_samples) equal-length waves -> (B, T, num_ceps) f32 on the
     device.  A tensor is computed where it lies (CUDA: the fbank kernel;
     CPU: its plain version); a numpy array goes to ``device`` (None
-    means CUDA and raises without a card)."""
+    means CUDA and raises without a card).  ``cfg.fbank.dither`` with a
+    ``dither_generator`` adds ``dither_waves``' noise to the waves
+    before the frontend, as khg_tpu adds its key's noise before framing;
+    without a generator nothing is added."""
     if not isinstance(waves, torch.Tensor):
         waves = torch.as_tensor(np.asarray(waves, np.float32),
                                 device=resolve_device(device))
-    return _mfcc_from_logmel(fbank_fused(waves, cfg.frontend_cfg()), cfg)
+    fcfg = cfg.frontend_cfg()
+    waves = dither_waves(waves, fcfg.dither, dither_generator)
+    logmel = fbank_fused(waves, replace(fcfg, dither=0.0))
+    return _mfcc_from_logmel(logmel, cfg)
 
 
 def compute_mfcc(
-    wave, cfg: MfccConfig = MfccConfig(), device: DeviceLike = None,
+    wave, cfg: MfccConfig = MfccConfig(),
+    dither_generator: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
 ) -> np.ndarray:
     """(num_samples,) waveform -> (T, num_ceps) MFCC features on the
     host, computed on ``device`` as ``compute_mfcc_batch`` does."""
-    out = compute_mfcc_batch(np.asarray(wave, np.float32)[None, :], cfg, device)
+    out = compute_mfcc_batch(np.asarray(wave, np.float32)[None, :], cfg,
+                             dither_generator, device)
     return out[0].cpu().numpy()

@@ -78,6 +78,7 @@ def component_scores_per_state(
     inv_vars: torch.Tensor,       # (P, K, D)
     state_pdf: torch.Tensor,      # (B, S) int: pdf of each graph state
     feats: torch.Tensor,          # (B, T, D)
+    compute_dtype: Optional[str] = None,
 ) -> torch.Tensor:
     """(B, T, S, K) f32 per-component scores of each graph STATE's pdf.
 
@@ -85,13 +86,18 @@ def component_scores_per_state(
     gathered once per (b, s) as (B, S, K, 2D) and the product with
     [x, x²] shrinks by P/S.  Shared by per-state alignment scoring
     (loglikes_per_state) and the local-state stats fold
-    (stats.accum.accumulate_am_stats_local)."""
+    (stats.accum.accumulate_am_stats_local).  ``compute_dtype`` as in
+    component_scores: 'bfloat16' rounds both operands to bf16, and the
+    products and sums stay f32."""
     P, K, D = means_invvars.shape
     A, g = stack_model(gconsts, means_invvars, inv_vars)
     spdf = state_pdf.long()
     A_state = A.reshape(P, K, 2 * D)[spdf]           # (B, S, K, 2D)
     g_state = g.reshape(P, K)[spdf]                  # (B, S, K)
     x2 = expand_feats(feats.to(torch.float32))       # (B, T, 2D)
+    if compute_dtype == "bfloat16":
+        A_state = A_state.to(torch.bfloat16).to(torch.float32)
+        x2 = x2.to(torch.bfloat16).to(torch.float32)
     return torch.einsum("btd,bskd->btsk", x2, A_state) + g_state[:, None]
 
 
@@ -101,12 +107,14 @@ def loglikes_per_state(
     inv_vars: torch.Tensor,
     state_pdf: torch.Tensor,
     feats: torch.Tensor,
+    compute_dtype: Optional[str] = None,
 ) -> torch.Tensor:
     """(B, T, S) log-likelihoods of each graph state's pdf: the values
     of loglikes(...)[b, t, state_pdf[b, s]] without scoring the pdfs
     outside the graph."""
     scores = component_scores_per_state(
-        gconsts, means_invvars, inv_vars, state_pdf, feats
+        gconsts, means_invvars, inv_vars, state_pdf, feats,
+        compute_dtype=compute_dtype,
     )
     return torch.logsumexp(scores, dim=-1)
 

@@ -71,6 +71,7 @@ from khg_tpu_torch.gmm.likelihoods import (
 from khg_tpu_torch.graph.h_builder import (
     _scaled_transition_log_prob,
     add_transition_probs,
+    modify_graph_for_careful_alignment,
 )
 from khg_tpu_torch.model.transition_model import TransitionModel
 from khg_tpu_torch.stats.accum import (
@@ -592,10 +593,15 @@ class EStepPipeline:
 
     # ------------------------------------------------------------ packing
 
-    def pack_graphs(self, graphs: Sequence[VectorFst]) -> List[PackedGraph]:
+    def pack_graphs(
+        self, graphs: Sequence[VectorFst], careful: bool = False
+    ) -> List[PackedGraph]:
         """Apply the current transition probs (align-time scales) and
         pack.  Mirrors gmm_align_compiled: scaled transition costs are
-        ADDED to the compile-time graph costs, on a copy."""
+        ADDED to the compile-time graph costs, on a copy.  ``careful``
+        concatenates a final-stripped copy so wrap-around alignments
+        fail loudly (AlignConfig.careful); such graphs have 2S + 1
+        states."""
         id2pdf = self.tm.id2pdf_array()
         packed = []
         for g in graphs:
@@ -603,6 +609,8 @@ class EStepPipeline:
             add_transition_probs(
                 self.tm, gc, self.transition_scale, self.self_loop_scale
             )
+            if careful:
+                gc = modify_graph_for_careful_alignment(gc)
             packed.append(pack_graph(gc, id2pdf))
         return packed
 

@@ -312,6 +312,9 @@ def extract_features(
         raise ValueError(f"unknown feature_type {feature_type!r}")
     if cfg is None:
         cfg = FbankConfig(sample_rate=SAMPLE_RATE)
+    if cfg.dither != 0.0:
+        # the fused frontend takes no noise, as khg_tpu's Pallas one
+        raise ValueError("extract_features: dither the waveforms first")
 
     waves = []
     for p in corpus.wav_paths:

@@ -321,6 +321,7 @@ def accumulate_am_stats_local(
     pdf_ids: torch.Tensor,        # (B, T) int
     frame_weights: torch.Tensor,  # (B, T) f32 (0 masks a frame out)
     state_pdf: torch.Tensor,      # (B, S) int: pdf of each graph state
+    state_scores: Optional[torch.Tensor] = None,  # (B, T, S, K) precomputed
 ) -> DenseStats:
     """Triphone-scale stats factored through each utterance's graph
     states (port of khg_tpu accumulate_am_stats_local).
@@ -333,18 +334,24 @@ def accumulate_am_stats_local(
     pdf share their model rows).  A w>0 frame whose pdf is absent from
     ``state_pdf`` drops out of every output, tot_log_like and
     tot_frames included.  Matches accumulate_am_stats up to f32
-    summation order."""
+    summation order.
+
+    Pass ``state_scores`` (component_scores_per_state's, f32) when the
+    caller already computed them for alignment scoring: the fold then
+    does no scoring product."""
     from khg_tpu_torch.gmm.likelihoods import component_scores_per_state
 
     P, K, D = means_invvars.shape
     B, T, _ = feats.shape
     S = state_pdf.shape[1]
     dev = feats.device
+    if state_scores is None:
+        state_scores = component_scores_per_state(
+            gconsts, means_invvars, inv_vars, state_pdf, feats
+        )
     # padding components carry gconst = -inf: a finite floor keeps every
     # product finite, and exp(-1e30 - max) is exactly 0
-    scores_sk = torch.clamp(component_scores_per_state(
-        gconsts, means_invvars, inv_vars, state_pdf, feats
-    ), min=-1e30)                                              # (B, T, S, K)
+    scores_sk = torch.clamp(state_scores, min=-1e30)           # (B, T, S, K)
     iota = torch.arange(S, device=dev)
     eq = state_pdf.long()[:, None, :] == pdf_ids.long()[:, :, None]
     sidx = torch.where(eq, iota, S).min(dim=-1).values         # (B, T)
